@@ -4,17 +4,24 @@
     python3 chip_smoke.py
 
 1. prints the card (`nvidia-smi` name and power limit, torch's device name);
-2. builds both CUDA kernels from `src/repro_torch/csrc` (one nvcc each, in
-   parallel) into the ignored `src/repro_torch/_build/`;
+2. builds both CUDA sources from `src/repro_torch/csrc` (one nvcc each, in
+   parallel) into the ignored `src/repro_torch/_build/`, prints ptxas's
+   register and spill lines and the count of integer tensor-core (IMMA)
+   instructions in the gf_matmul library's SASS;
 3. kernel phase: holds each kernel bitwise against its plain PyTorch version
    at the main path's shapes and at edge shapes, and times kernel, plain
    version and a one-call PyTorch yardstick with CUDA events;
-4. main-path phase: `CodedSystem(CodeSpec(kind="rs", K=256, R=64))` on the
-   card with a seeded (256, 2^18) payload: codeword -> fail 64 -> degraded
-   read -> rebuild -> heal, checked bitwise; then a dense encode
-   (universal 256/64) and a dft K=4096 encode, each checked against the
+4. main-path phase, three paths, each with the launch counts set to 0 just
+   before and read just after: `CodedSystem(CodeSpec(kind="rs", K=256,
+   R=64))` on the card with a seeded (256, 2^18) payload: codeword -> fail
+   64 -> degraded read -> rebuild -> heal, checked bitwise; a dense encode
+   (universal 256/64); a dft K=4096 encode; each encode checked against the
    exact numpy oracle;
 5. prints the per-kernel JSON line and, last, the device JSON line.
+
+The kernels: `gf_matmul` (int8 tensor cores, 8-bit limbs), `ntt` (the
+register kernel, Z <= 64) and `ntt_slab` (the shared-memory kernel,
+64 < Z <= 4096), the last two behind the one `ntt` wrapper.
 
 Exits nonzero, printing no result, without a CUDA device, outside the
 repository, or when any check fails.  Imports nothing of the JAX package.
@@ -23,6 +30,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -36,12 +44,17 @@ DFT_K = 4096          # the NTT kernel's largest transform
 DFT_W = 1 << 12
 CHECK_COLS = 4096     # columns held against the CPU and the numpy oracle
 
-# Peak rates of one H100 SXM (NVIDIA's data sheet): 3.35 TB/s of HBM3, and
+# Peak rates of one H100 SXM (NVIDIA's data sheet): 3.35 TB/s of HBM3,
+# 1,979 T int8 tensor-core operations/s dense (989.5 T u8 multiply-adds), and
 # 67 TFLOP/s of float32 on the CUDA cores = 128 FMA lanes per SM.  The Hopper
 # SM has 64 INT32 lanes (Hopper architecture white paper), so integer
-# multiply-adds peak at half the float32 FMA rate: 67e12 / 2 / 2 per second.
+# multiply-adds on the CUDA cores peak at half the float32 FMA rate:
+# 67e12 / 2 / 2 per second.
 HBM_BYTES_PER_S = 3.35e12
+INT8_MAC_PER_S = 1979e12 / 2
 INT32_MAD_PER_S = 67e12 / 4
+DESIGNS = {"gf_matmul": "imma-u8-limbs", "ntt": "ntt-registers",
+           "ntt_slab": "ntt-slab"}
 
 
 def fail(msg: str) -> None:
@@ -79,12 +92,42 @@ def time_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(nbytes: int, ops: int) -> tuple[float, str]:
+def bound(nbytes: int, ops: int, rate: float) -> tuple[float, str]:
     """Least time for the work (ms) and what sets it: the bytes moved over
-    the memory rate, or the integer multiply-adds over the INT32 rate."""
+    the memory rate, or the operations over `rate`, their type's peak."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / INT32_MAD_PER_S * 1e3
+    t_ops = ops / rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def imma_macs(a, b) -> int:
+    """u8 multiply-adds the tensor-core kernel performs on these operands:
+    four limb products per field multiply-add; two more for a's top limb in
+    each 16-row x 32-deep tile of a that holds a 65536 (over all slabs of
+    b); three more for b's top limb in each 32-deep x 128-column step of a
+    slab that holds one (over all 32-row M-tiles)."""
+    import torch.nn.functional as F
+
+    M, K = a.shape
+    N = b.shape[1]
+    Mp, Np = -(-M // 32) * 32, -(-N // 128) * 128
+    Kp = -(-K // 32) * 32
+    ta = F.pad((a == Q - 1).float(), (0, Kp - K, 0, -(-M // 16) * 16 - M))
+    tiles_a = int(F.max_pool2d(ta[None], (16, 32)).sum().item())
+    tb = F.pad((b == Q - 1).float(), (0, Np - N, 0, Kp - K))
+    tiles_b = int(F.max_pool2d(tb[None], (32, 128)).sum().item())
+    return (4 * Mp * Kp * Np + 2 * tiles_a * 16 * 32 * Np
+            + 3 * tiles_b * Mp * 32 * 128)
+
+
+def sass_count(build, name: str, opcode: str) -> int:
+    """Instructions of `opcode` in the built library's SASS (cuobjdump)."""
+    tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(build.library_path(name))],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    # "/*addr*/ [@P0] OPCODE..."
+    return len(re.findall(rf"\*/\s+(?:@!?U?P\w+\s+)?{opcode}\b", sass))
 
 
 def max_abs_err(got, want) -> int:
@@ -96,13 +139,15 @@ def max_abs_err(got, want) -> int:
 # ---------------------------------------------------------------------------
 
 def kernel_phase(gen):
-    """Hold both kernels against their plain versions; returns the summed
+    """Hold every kernel against its plain version; returns the summed
     figures of each kernel over the shapes the main path launches it at."""
+    import numpy as np
     import torch
 
     from repro_torch.core.field import FERMAT
     from repro_torch.core.matrices import gauss_inverse, permuted_dft_matrix
     from repro_torch.kernels import gf_matmul, gf_matmul_plain, ntt, ntt_plain
+    from repro_torch.kernels.ntt import REGS_MAX_Z
 
     dev = torch.device("cuda")
 
@@ -113,7 +158,10 @@ def kernel_phase(gen):
     def full(*shape):
         return torch.full(shape, Q - 1, device=dev, dtype=torch.int32)
 
-    worst = {"gf_matmul": 0, "ntt": 0}  # kernel vs plain version, per kernel
+    def ntt_name(Z):
+        return "ntt" if Z <= REGS_MAX_Z else "ntt_slab"
+
+    worst = dict.fromkeys(DESIGNS, 0)  # kernel vs plain version, per kernel
 
     def check(name, got, want, kernel=None):
         err = max_abs_err(got, want)
@@ -124,22 +172,30 @@ def kernel_phase(gen):
                           "max_abs_err": err, "tolerance": 0}))
         need(err == 0, f"{name}: results differ (max abs err {err})")
 
-    # -- edge shapes: ragged widths, the 65536 corner, deep accumulation ----
-    for M, K, N in [(37, 300, 100003), (1, 1, 1)]:
-        a, b = rnd(M, K), rnd(K, N)
-        check(f"gf_matmul ragged {M}x{K}x{N}", gf_matmul(a, b),
-              gf_matmul_plain(a, b), "gf_matmul")
-    a, b = full(64, 4096), full(4096, 1000)
-    check("gf_matmul all-65536", gf_matmul(a, b), gf_matmul_plain(a, b),
-          "gf_matmul")
-    a, b = full(8, 1 << 20), full(1 << 20, 130)
-    check("gf_matmul all-65536 K=2^20", gf_matmul(a, b),
-          gf_matmul_plain(a, b), "gf_matmul")
-    for Z, C in [(4096, 1003), (2, 1001), (64, (1 << 20) + 5), (1, 7)]:
+    def gf_check(name, a, b):
+        check(f"gf_matmul {name}", gf_matmul(a, b), gf_matmul_plain(a, b),
+              "gf_matmul")
+
+    # -- edge shapes: ragged M around the 32-row tiles, N off the 128-column
+    # slab, K across the 256-deep chunk and the 16,384 flush, 65536 == -1 --
+    for M, K, N in [(37, 300, 100003), (1, 1, 1), (1, 256, 1000),
+                    (63, 256, 1000), (65, 256, 1000), (257, 256, 1000),
+                    (5, 16385, 200), (4, 16384, 7), (3, 16383, 131)]:
+        gf_check(f"ragged {M}x{K}x{N}", rnd(M, K), rnd(K, N))
+    a, b = rnd(65, 256), rnd(256, 1000)
+    b[100, 300] = Q - 1  # a single 65536 in one b tile
+    gf_check("one 65536 in b", a, b)
+    a = rnd(257, 256)
+    a.view(-1)[torch.randperm(a.numel(), generator=gen, device=dev)[:999]] = Q - 1
+    gf_check("-1 scattered over a", a, rnd(256, 1000))
+    gf_check("all-65536", full(64, 4096), full(4096, 1000))
+    gf_check("all-65536 K=2^20", full(8, 1 << 20), full(1 << 20, 130))
+    for Z, C in [(4096, 1003), (2, 1001), (64, (1 << 20) + 5), (1, 7)] + [
+            (1 << h, 1000 + 3 * h + 1) for h in range(8)]:
         x = rnd(Z, C)
         for inv in (False, True):
             check(f"ntt Z={Z} C={C} inverse={inv}", ntt(x, inverse=inv),
-                  ntt_plain(x, inverse=inv), "ntt")
+                  ntt_plain(x, inverse=inv), ntt_name(Z))
     x = full(64, 4096)
     for inv in (False, True):
         check(f"ntt all-65536 inverse={inv}", ntt(x, inverse=inv),
@@ -159,37 +215,44 @@ def kernel_phase(gen):
 
         check(f"library yardstick {what}", library(), got)  # exact < 2^53
         nbytes = 4 * (M * 256 + 256 * W + M * W)
-        rows.append(("gf_matmul", what, nbytes, M * 256 * W,
-                     time_ms(lambda: gf_matmul(a, b), 20),
+        rows.append(("gf_matmul", what, nbytes, imma_macs(a, b), INT8_MAC_PER_S,
+                     M * 256 * W, time_ms(lambda: gf_matmul(a, b), 20),
                      time_ms(lambda: gf_matmul_plain(a, b), 3),
                      time_ms(library, 5)))
-    Z, C = 64, 4 * W
-    D = permuted_dft_matrix(FERMAT, Z, 2)
-    for inv, what in [(True, "inverse (64 x 2^20)"), (False, "forward (64 x 2^20)")]:
+    for Z, C, inv, what in [
+            (64, 4 * W, True, "inverse (64 x 2^20)"),
+            (64, 4 * W, False, "forward (64 x 2^20)"),
+            (DFT_K, DFT_W, False, "forward (4096 x 2^12)")]:
         x = rnd(Z, C)
+        name = ntt_name(Z)
         got = ntt(x, inverse=inv)
-        check(f"ntt {what}", got, ntt_plain(x, inverse=inv), "ntt")
+        check(f"ntt {what}", got, ntt_plain(x, inverse=inv), name)
+        D = permuted_dft_matrix(FERMAT, Z, 2)
         mat = gauss_inverse(FERMAT, D) if inv else D
-        dt = torch.as_tensor(mat.T.astype("float64"), device=dev)
+        dt = torch.as_tensor(np.asarray(mat.T, np.float64), device=dev)
 
         def library(x=x, dt=dt):
-            return torch.remainder(dt @ x.double(), Q)
+            return torch.remainder(dt @ x.double(), Q)  # exact: < Z 2^32
 
         check(f"library yardstick ntt {what}", library(), got)
-        butterflies = Z // 2 * 6 * C
-        ops = 3 * butterflies + (Z * C if inv else 0)  # mul, add, sub; scale
-        rows.append(("ntt", what, 8 * Z * C + 4 * 6 * Z // 2, ops,
+        H = Z.bit_length() - 1
+        ops = 3 * (Z // 2 * H * C) + (Z * C if inv else 0)  # mul, add, sub; scale
+        rows.append((name, what, 8 * Z * C + 4 * H * Z // 2, ops,
+                     INT32_MAD_PER_S, None,
                      time_ms(lambda: ntt(x, inverse=inv), 50),
                      time_ms(lambda: ntt_plain(x, inverse=inv), 3),
-                     time_ms(library, 5)))
+                     time_ms(library, 3)))
 
     summary = {}
-    for name, what, nbytes, ops, k_ms, p_ms, l_ms in rows:
-        b_ms, b_by = bound(nbytes, ops)
-        print(json.dumps({"kernel": name, "shape": what, "bytes": nbytes,
-                          "int_ops": ops, "kernel_ms": k_ms, "plain_ms": p_ms,
-                          "library_ms": l_ms, "bound_ms": b_ms,
-                          "bound_by": b_by}))
+    for name, what, nbytes, ops, rate, mads, k_ms, p_ms, l_ms in rows:
+        b_ms, b_by = bound(nbytes, ops, rate)
+        line = {"kernel": name, "design": DESIGNS[name], "shape": what,
+                "bytes": nbytes, "ops": ops, "kernel_ms": k_ms,
+                "plain_ms": p_ms, "library_ms": l_ms, "bound_ms": b_ms,
+                "bound_by": b_by, "bound_share": b_ms / k_ms}
+        if mads is not None:  # the same work on the CUDA cores' INT32 lanes
+            line["int32_bound_ms"] = bound(nbytes, mads, INT32_MAD_PER_S)[0]
+        print(json.dumps(line))
         s = summary.setdefault(name, {"shapes": [], "ms": 0.0, "plain_ms": 0.0,
                                       "library_ms": 0.0, "bound_ms": 0.0,
                                       "bound_by": b_by})
@@ -239,11 +302,28 @@ def oracle_parity(A, x):
     return FERMAT.matmul(A.T, x)
 
 
+def reset_counts() -> None:
+    from repro_torch.kernels import gf_matmul, ntt
+
+    gf_matmul.launches = 0
+    ntt.launches = 0
+    ntt.launches_by_kernel = dict.fromkeys(ntt.launches_by_kernel, 0)
+
+
+def read_counts() -> dict:
+    from repro_torch.kernels import gf_matmul, ntt
+
+    return {"gf_matmul": gf_matmul.launches,
+            "ntt": ntt.launches_by_kernel["registers"],
+            "ntt_slab": ntt.launches_by_kernel["slab"]}
+
+
 def main_path_phase():
+    """Returns each kernel's launches summed over the three paths, each
+    path counted from 0 just before it to just after it."""
     import numpy as np
 
     from repro_torch.api import CodedSystem, CodeSpec
-    from repro_torch.kernels import gf_matmul, ntt
 
     rng = np.random.default_rng(SEED)
     spec = CodeSpec(kind="rs", K=256, R=64)
@@ -253,8 +333,7 @@ def main_path_phase():
                                    spec.K + rng.choice(spec.R, 24,
                                                        replace=False)]))
 
-    gf_matmul.launches = 0
-    ntt.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     system = CodedSystem(spec, backend="local", trace=True)
     print(json.dumps({"op": "plan_encode", "wall_ms":
@@ -272,12 +351,13 @@ def main_path_phase():
     x2 = timed_op(system, "read", lambda: system.read(lost))
     healed = timed_op(system, "rebuild", lambda: system.rebuild(lost))
     system.heal()
-    launches = {"gf_matmul": gf_matmul.launches, "ntt": ntt.launches}
+    launches = read_counts()
     system.close()
     need(np.array_equal(x2, x), "degraded read differs from the data")
     need(np.array_equal(healed, cw), "rebuild differs from the codeword")
     need(system.failed == (), system.failed)
     need(launches["ntt"] >= 2 and launches["gf_matmul"] >= 2, launches)
+    total = dict(launches)
     cpu = CodedSystem(spec, backend="local", device="cpu")
     need(np.array_equal(cpu.codeword(x[:, :C]), cw[:, :C]),
          "card parity differs from the plain versions on the CPU")
@@ -290,19 +370,24 @@ def main_path_phase():
     # the other two encode routes: dense field matmul and a large dft
     for spec, W, impl, kernel in [
             (CodeSpec(kind="universal", K=256, R=64, seed=0), MAIN_W, "dense",
-             gf_matmul),
-            (CodeSpec(kind="dft", K=DFT_K, R=DFT_K), DFT_W, "ntt", ntt)]:
+             "gf_matmul"),
+            (CodeSpec(kind="dft", K=DFT_K, R=DFT_K), DFT_W, "ntt", "ntt_slab")]:
         x = rng.integers(0, Q, (spec.K, W), dtype=np.int64)
-        before = kernel.launches
+        reset_counts()
         system = CodedSystem(spec, backend="local", trace=True)
         need(system.encode_plan.local_impl == impl, spec)
         y = timed_op(system, "encode", lambda: system.encode(x))
+        counts = read_counts()
         system.close()
-        need(kernel.launches > before, f"{spec}: no {impl} kernel launch")
+        print(json.dumps({"path": f"encode {spec.kind} K={spec.K} R={spec.R} "
+                          f"W={W}", "launches": counts}))
+        need(counts[kernel] >= 1, f"{spec}: no {kernel} kernel launch")
         need(y.shape == (spec.R, W), y.shape)
         need(np.array_equal(oracle_parity(system.encode_plan.A, x[:, :64]),
                             y[:, :64]), f"{spec}: parity differs from x^T A")
-    return launches
+        for name, n in counts.items():
+            total[name] += n
+    return total
 
 
 def main() -> int:
@@ -326,12 +411,17 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"{name}: {line.strip()}")
+    imma = sass_count(build, "gf_matmul", "IMMA")
+    print(json.dumps({"sass": "gf_matmul", "imma_instructions": imma}))
+    need(imma > 0, "no integer tensor-core instruction in gf_matmul's SASS")
 
     print(json.dumps({"peaks": {
-        "hbm_bytes_per_s": HBM_BYTES_PER_S, "int32_mad_per_s": INT32_MAD_PER_S,
-        "source": "H100 SXM data sheet (3.35 TB/s; 67 TFLOP/s float32 = 128 "
-                  "FMA lanes/SM) and the Hopper white paper (64 INT32 "
-                  "lanes/SM): INT32 multiply-adds at half the FMA rate"}}))
+        "hbm_bytes_per_s": HBM_BYTES_PER_S, "int8_mac_per_s": INT8_MAC_PER_S,
+        "int32_mad_per_s": INT32_MAD_PER_S,
+        "source": "H100 SXM data sheet (3.35 TB/s; 1,979 T int8 ops/s dense; "
+                  "67 TFLOP/s float32 = 128 FMA lanes/SM) and the Hopper "
+                  "white paper (64 INT32 lanes/SM): INT32 multiply-adds at "
+                  "half the FMA rate"}}))
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     summary = kernel_phase(gen)
     launches = main_path_phase()
@@ -339,16 +429,21 @@ def main() -> int:
     sources = {"gf_matmul": ("src/repro_torch/csrc/gf_matmul.cu",
                              "src/repro/kernels/gf_matmul.py:53"),
                "ntt": ("src/repro_torch/csrc/ntt.cu",
-                       "src/repro/kernels/ntt.py:80")}
+                       "src/repro/kernels/ntt.py:80"),
+               "ntt_slab": ("src/repro_torch/csrc/ntt.cu",
+                            "src/repro/kernels/ntt.py:80")}
     kernels = []
     for name, (source, replaces) in sources.items():
         s = summary[name]
+        need(launches[name] >= 1, f"{name}: not launched on the main path")
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches[name],
                         "max_abs_err": s["max_abs_err"], "ms": s["ms"],
                         "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
                         "bound_by": s["bound_by"],
-                        "library_ms": s["library_ms"], "shapes": s["shapes"]})
+                        "library_ms": s["library_ms"], "design": DESIGNS[name],
+                        "bound_share": s["bound_ms"] / s["ms"],
+                        "shapes": s["shapes"]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,10 @@
 """`gf_matmul`: (a @ b) mod 65537, the CUDA kernel of `csrc/gf_matmul.cu`.
 
 It replaces the JAX package's Pallas TPU kernel (`repro/kernels/gf_matmul.py`,
-`_gf_matmul_kernel`); the source says how.  A CUDA tensor launches the kernel
-on the current stream (no synchronise) or raises; a CPU tensor runs the plain
+`_gf_matmul_kernel`); the source says how.  The kernel multiplies 8-bit limbs
+on the int8 tensor cores; `a_limbs` builds a's limb planes on the device, the
+only plain torch work the wrapper adds.  A CUDA tensor launches the kernel on
+the current stream (no synchronise) or raises; a CPU tensor runs the plain
 version `ref.gf_matmul_plain`.  `gf_matmul.launches` counts kernel launches.
 """
 from __future__ import annotations
@@ -15,16 +17,33 @@ import torch
 from . import build
 from .ref import gf_matmul_plain
 
-_MAX_M = 32 * 65535          # the kernel's grid rows: 32 rows each
 _INT_MAX = (1 << 31) - 1
+_MAX_K = 1 << 30  # keeps the kernel's int k indices clear of overflow
+_K_ALIGN = 16  # a's limb planes are staged in 16-byte loads
 
 
 @functools.lru_cache(maxsize=None)
 def _launcher():
-    # gf_matmul_launch(a, b, c, M, N, K, stream)
+    # gf_matmul_launch(al, ahi, b, c, M, N, K, Kp, stream)
     return build.entry("gf_matmul", "gf_matmul_launch",
-                       [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+                       [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
                        + [ctypes.c_void_p])
+
+
+def a_limbs(a: torch.Tensor) -> torch.Tensor:
+    """a (M, K) int32 in [0, q) -> its (3, M, Kp) uint8 limb planes, K-major:
+    a = a0 + 2^8 a1 + 2^16 a2 with a0, a1 in [0, 255] and a2 in {0, 1}
+    (a2 = 1 only for 65536 == -1).  The limbs are the low three bytes of
+    each little-endian int32, so one strided copy builds the planes.  Kp is
+    K rounded up to 16 (at least 16); the pad is 0."""
+    M, K = a.shape
+    Kp = max(1, -(-K // _K_ALIGN)) * _K_ALIGN
+    make = torch.empty if Kp == K else torch.zeros
+    planes = make((3, M, Kp), dtype=torch.uint8, device=a.device)
+    if K:  # (an empty a has no byte view)
+        limbs = a.contiguous().view(torch.uint8).view(M, K, 4)
+        planes[:, :, :K] = limbs.permute(2, 0, 1)[:3]
+    return planes
 
 
 def gf_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -45,16 +64,19 @@ def gf_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         raise ValueError("gf_matmul's kernel takes contiguous row-major operands")
     M, K = a.shape
     N = b.shape[1]
-    if M > _MAX_M or max(K, N) > _INT_MAX:
-        raise ValueError(f"gf_matmul kernel takes M <= {_MAX_M} and K, N < 2^31, "
+    if max(M, N) > _INT_MAX or K > _MAX_K:
+        raise ValueError(f"gf_matmul kernel takes M, N < 2^31 and K <= 2^30, "
                          f"got M={M}, K={K}, N={N}")
     out = torch.empty((M, N), dtype=torch.int32, device=a.device)
     if out.numel() == 0:
         return out
     with torch.cuda.device(a.device):
+        al = a_limbs(a)
+        ahi = al[2].amax(dim=1)  # rows holding a 65536: a2 takes part there
         stream = torch.cuda.current_stream().cuda_stream
-        build.check(_launcher()(a.data_ptr(), b.data_ptr(), out.data_ptr(),
-                                M, N, K, stream), "gf_matmul")
+        build.check(_launcher()(al.data_ptr(), ahi.data_ptr(), b.data_ptr(),
+                                out.data_ptr(), M, N, K, al.shape[2], stream),
+                    "gf_matmul")
     gf_matmul.launches += 1
     return out
 

@@ -4,9 +4,12 @@ Computes, for each of C independent columns of x (Z, C), the Z-point NTT in
 decimation-in-frequency order: output position k holds X[rev(k)], which is
 the paper's permuted DFT D_Z Pi (Sec. V-A).  It replaces the JAX package's
 Pallas TPU kernel (`repro/kernels/ntt.py`, `_ntt_kernel` / `_ntt_stages`);
-the source says how.  A CUDA tensor launches the kernel on the current
-stream (no synchronise) or raises; a CPU tensor runs the plain version
-`ref.ntt_plain`.  `ntt.launches` counts kernel launches.
+the source says how.  The source holds two kernels, picked by Z: for
+Z <= 64 (`REGS_MAX_Z`) each thread keeps one column in registers; above it a
+block keeps a column slab in shared memory.  A CUDA tensor launches one of
+them on the current stream (no synchronise) or raises; a CPU tensor runs the
+plain version `ref.ntt_plain`.  `ntt.launches` counts kernel launches, and
+`ntt.launches_by_kernel` splits them into "registers" and "slab".
 """
 from __future__ import annotations
 
@@ -23,8 +26,10 @@ from .ref import ntt_plain
 
 MAX_Z = 4096  # one (Z, bw) slab per block in shared memory; a four-step
               # split would lift this (the TPU kernel has the same limit)
+REGS_MAX_Z = 64  # a whole column in one thread's registers
 
 _TWIDDLES: dict[tuple, torch.Tensor] = {}
+_HOST_TWIDDLES: dict[tuple, np.ndarray] = {}
 
 
 def ntt_twiddles(K: int, inverse: bool = False) -> np.ndarray:
@@ -43,8 +48,8 @@ def ntt_twiddles(K: int, inverse: bool = False) -> np.ndarray:
 
 
 def slab_width(Z: int) -> int:
-    """Columns per block: a (Z, bw) int32 slab of 64 KiB (32 KiB at Z = 64,
-    since bw stops at 128; 128 KiB at Z = 4096, since bw stops at 8)."""
+    """Columns per block of the slab kernel: a (Z, bw) int32 slab of 64 KiB
+    (Z = 128: bw = 128; 128 KiB at Z = 4096, since bw stops at 8)."""
     return max(8, min(128, 16384 // Z))
 
 
@@ -57,13 +62,30 @@ def _device_twiddles(Z: int, inverse: bool, device) -> torch.Tensor:
     return tw
 
 
+def _host_twiddles(Z: int, inverse: bool) -> np.ndarray:
+    key = (Z, inverse)
+    tw = _HOST_TWIDDLES.get(key)
+    if tw is None:
+        tw = _HOST_TWIDDLES[key] = np.ascontiguousarray(ntt_twiddles(Z, inverse))
+    return tw
+
+
 @functools.lru_cache(maxsize=None)
-def _launcher():
+def _slab_launcher():
     # ntt_launch(x, out, tw, H, C, lbw, scale, inverse, stream)
     return build.entry("ntt", "ntt_launch",
                        [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_longlong,
                                                 ctypes.c_int, ctypes.c_uint,
                                                 ctypes.c_int, ctypes.c_void_p])
+
+
+@functools.lru_cache(maxsize=None)
+def _regs_launcher():
+    # ntt_regs_launch(x, out, tw_host, H, C, scale, inverse, stream)
+    return build.entry("ntt", "ntt_regs_launch",
+                       [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_longlong,
+                                                ctypes.c_uint, ctypes.c_int,
+                                                ctypes.c_void_p])
 
 
 def ntt(x: torch.Tensor, *, inverse: bool = False) -> torch.Tensor:
@@ -92,15 +114,25 @@ def ntt(x: torch.Tensor, *, inverse: bool = False) -> torch.Tensor:
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
-    tw = _device_twiddles(Z, inverse, x.device)
     scale = pow(Z, FERMAT_Q - 2, FERMAT_Q) if inverse else 1
-    lbw = slab_width(Z).bit_length() - 1
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        build.check(_launcher()(x.data_ptr(), out.data_ptr(), tw.data_ptr(),
-                                H, C, lbw, scale, int(inverse), stream), "ntt")
+        if Z <= REGS_MAX_Z:
+            kernel = "registers"
+            tw = _host_twiddles(Z, inverse)
+            err = _regs_launcher()(x.data_ptr(), out.data_ptr(), tw.ctypes.data,
+                                   H, C, scale, int(inverse), stream)
+        else:
+            kernel = "slab"
+            tw = _device_twiddles(Z, inverse, x.device)
+            lbw = slab_width(Z).bit_length() - 1
+            err = _slab_launcher()(x.data_ptr(), out.data_ptr(), tw.data_ptr(),
+                                   H, C, lbw, scale, int(inverse), stream)
+        build.check(err, f"ntt ({kernel})")
     ntt.launches += 1
+    ntt.launches_by_kernel[kernel] += 1
     return out
 
 
 ntt.launches = 0
+ntt.launches_by_kernel = {"registers": 0, "slab": 0}

@@ -47,6 +47,34 @@ def test_cuda_gf_matmul_matches_plain(cuda_device, M, K, N):
     assert torch.equal(gf_matmul(full, fb).long(), gf_matmul_plain(full, fb))
 
 
+def _gf_case(device, M, K, N, corner, seed):
+    """Edge operands of the limb kernel: ragged M around its 32-row tiles,
+    K across the 16,384 flush, N off the 128-column slab, 65536 == -1."""
+    a = _rng(seed).integers(0, FERMAT_Q, (M, K))
+    b = _rng(seed + 1).integers(0, FERMAT_Q, (K, N))
+    if corner == "one 65536 in b":
+        b[K // 2, N // 2] = FERMAT_Q - 1
+    if corner == "-1 scattered over a":
+        a.flat[_rng(seed).choice(a.size, max(1, a.size // 7), replace=False)] = FERMAT_Q - 1
+    return (torch.as_tensor(a.astype(np.int32), device=device),
+            torch.as_tensor(b.astype(np.int32), device=device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N,corner", [
+    (1, 256, 300, ""), (63, 256, 1000, ""), (65, 200, 257, ""), (257, 256, 129, ""),
+    (3, 16385, 131, ""), (4, 16384, 7, ""), (2, 16383, 5, ""), (1, 32769, 1, ""),
+    (33, 300, 4097, "one 65536 in b"), (96, 512, 384, "-1 scattered over a"),
+    (3, 0, 5, "")])
+def test_cuda_gf_matmul_edge_shapes(cuda_device, M, K, N, corner):
+    a, b = _gf_case(cuda_device, M, K, N, corner, seed=M + K + N)
+    before = gf_matmul.launches
+    got = gf_matmul(a, b)
+    torch.cuda.synchronize()
+    assert gf_matmul.launches == before + 1
+    assert torch.equal(got.long(), gf_matmul_plain(a, b))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("Z,C", [(1, 5), (2, 999), (64, 4099), (4096, 67)])
 def test_cuda_ntt_matches_plain(cuda_device, Z, C):
@@ -57,6 +85,21 @@ def test_cuda_ntt_matches_plain(cuda_device, Z, C):
         torch.cuda.synchronize()
         assert ntt.launches == before + 1
         assert torch.equal(got.long(), ntt_plain(x, inverse=inverse))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("Z", [1, 2, 4, 8, 16, 32, 64, 128])
+def test_cuda_ntt_kernels_by_z(cuda_device, Z, inverse):
+    """Both kernels and the boundary between them (registers up to Z = 64,
+    the shared-memory slab above), at a ragged width."""
+    x = _cuda_rand(cuda_device, Z, 1000 + 3 * Z + 1, seed=Z + 7)
+    kernel = "registers" if Z <= 64 else "slab"
+    before = dict(ntt.launches_by_kernel)
+    got = ntt(x, inverse=inverse)
+    torch.cuda.synchronize()
+    assert ntt.launches_by_kernel[kernel] == before[kernel] + 1
+    assert torch.equal(got.long(), ntt_plain(x, inverse=inverse))
 
 
 @pytest.mark.cuda
