@@ -11,17 +11,18 @@
 3. kernel phase: holds each kernel bitwise against its plain PyTorch version
    at the main path's shapes and at edge shapes, and times kernel, plain
    version and a one-call PyTorch yardstick with CUDA events;
-4. main-path phase, three paths, each with the launch counts set to 0 just
+4. main-path phase, four paths, each with the launch counts set to 0 just
    before and read just after: `CodedSystem(CodeSpec(kind="rs", K=256,
    R=64))` on the card with a seeded (256, 2^18) payload: codeword -> fail
    64 -> degraded read -> rebuild -> heal, checked bitwise; a dense encode
-   (universal 256/64); a dft K=4096 encode; each encode checked against the
-   exact numpy oracle;
+   (universal 256/64); a dft K=4096 and a dft K=8192 encode; each encode
+   checked against the exact numpy oracle;
 5. prints the per-kernel JSON line and, last, the device JSON line.
 
-The kernels: `gf_matmul` (int8 tensor cores, 8-bit limbs), `ntt` (the
-register kernel, Z <= 64) and `ntt_slab` (the shared-memory kernel,
-64 < Z <= 4096), the last two behind the one `ntt` wrapper.
+The kernels: `gf_matmul` (int8 tensor cores, 8-bit limbs), and behind the
+one `ntt` wrapper `ntt` (the register kernel, Z <= 64), `ntt_slab` (two
+register passes through shared memory, 64 < Z <= 4096, and the 4096-row
+blocks above) and `ntt_outer` (the leading stages of 4096 < Z <= 2^16).
 
 Exits nonzero, printing no result, without a CUDA device, outside the
 repository, or when any check fails.  Imports nothing of the JAX package.
@@ -40,8 +41,10 @@ SRC = os.path.join(ROOT, "src")
 Q = 65537
 SEED = 0
 MAIN_W = 1 << 18      # payload width of the main path (README's stream size)
-DFT_K = 4096          # the NTT kernel's largest transform
+DFT_K = 4096          # the slab kernel's largest transform
 DFT_W = 1 << 12
+DFT_BIG_K = 8192      # the smallest transform above it (leading stages + slab)
+BIG_CHECK_COLS = 16   # columns of the dft 8192 encode held against x^T A
 CHECK_COLS = 4096     # columns held against the CPU and the numpy oracle
 
 # Peak rates of one H100 SXM (NVIDIA's data sheet): 3.35 TB/s of HBM3,
@@ -54,7 +57,9 @@ HBM_BYTES_PER_S = 3.35e12
 INT8_MAC_PER_S = 1979e12 / 2
 INT32_MAD_PER_S = 67e12 / 4
 DESIGNS = {"gf_matmul": "imma-u8-limbs", "ntt": "ntt-registers",
-           "ntt_slab": "ntt-slab"}
+           "ntt_slab": "ntt-two-register-passes",
+           "ntt_outer": "ntt-leading-stages"}
+SLAB_MAX_Z = 4096
 
 
 def fail(msg: str) -> None:
@@ -134,6 +139,42 @@ def max_abs_err(got, want) -> int:
     return int((got.long() - want.long()).abs().max().item()) if got.numel() else 0
 
 
+def dft_matrix(Z: int, inverse: bool, dev):
+    """The (Z, Z) float64 matrix T with ntt(x, inverse) == T @ x mod q:
+    forward T[k, j] = root^(j rev(k)) (the permuted DFT, transposed);
+    inverse T[j, k] = Z^-1 root^-(j rev(k))."""
+    import torch
+
+    from repro_torch.kernels.ntt import roots
+
+    root, scale = roots(Z, inverse)
+    pw, acc = [], scale
+    for _ in range(Z):
+        pw.append(acc)
+        acc = acc * root % Q
+    H = Z.bit_length() - 1
+    k = torch.arange(Z, device=dev)
+    rev = sum(((k >> b) & 1) << (H - 1 - b) for b in range(H)) if H else k
+    t = torch.as_tensor(pw, device=dev)[k[:, None] * rev[None, :] % Z]
+    return (t if inverse else t.T).double().contiguous()
+
+
+def outer_only(x, inverse: bool):
+    """ntt_outer alone on x (Z > 4096) into a fresh output: the leading
+    stages' share of the route above 4096, for timing."""
+    import importlib
+
+    import torch
+
+    mod = importlib.import_module("repro_torch.kernels.ntt")
+    Z = x.shape[0]
+    root, scale = mod.roots(Z, inverse)
+    out = torch.empty_like(x)
+    mod._outer(x, out, Z, root, scale, inverse,
+               torch.cuda.current_stream().cuda_stream)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # kernel phase
 # ---------------------------------------------------------------------------
@@ -141,11 +182,8 @@ def max_abs_err(got, want) -> int:
 def kernel_phase(gen):
     """Hold every kernel against its plain version; returns the summed
     figures of each kernel over the shapes the main path launches it at."""
-    import numpy as np
     import torch
 
-    from repro_torch.core.field import FERMAT
-    from repro_torch.core.matrices import gauss_inverse, permuted_dft_matrix
     from repro_torch.kernels import gf_matmul, gf_matmul_plain, ntt, ntt_plain
     from repro_torch.kernels.ntt import REGS_MAX_Z
 
@@ -158,14 +196,16 @@ def kernel_phase(gen):
     def full(*shape):
         return torch.full(shape, Q - 1, device=dev, dtype=torch.int32)
 
-    def ntt_name(Z):
-        return "ntt" if Z <= REGS_MAX_Z else "ntt_slab"
+    def ntt_names(Z):
+        if Z <= REGS_MAX_Z:
+            return ("ntt",)
+        return ("ntt_slab",) if Z <= SLAB_MAX_Z else ("ntt_outer", "ntt_slab")
 
     worst = dict.fromkeys(DESIGNS, 0)  # kernel vs plain version, per kernel
 
-    def check(name, got, want, kernel=None):
+    def check(name, got, want, kernels=()):
         err = max_abs_err(got, want)
-        if kernel is not None:
+        for kernel in kernels:
             worst[kernel] = max(worst[kernel], err)
         # exact field arithmetic: the tolerance is 0
         print(json.dumps({"check": name, "shape": list(got.shape),
@@ -174,7 +214,7 @@ def kernel_phase(gen):
 
     def gf_check(name, a, b):
         check(f"gf_matmul {name}", gf_matmul(a, b), gf_matmul_plain(a, b),
-              "gf_matmul")
+              ("gf_matmul",))
 
     # -- edge shapes: ragged M around the 32-row tiles, N off the 128-column
     # slab, K across the 256-deep chunk and the 16,384 flush, 65536 == -1 --
@@ -190,16 +230,18 @@ def kernel_phase(gen):
     gf_check("-1 scattered over a", a, rnd(256, 1000))
     gf_check("all-65536", full(64, 4096), full(4096, 1000))
     gf_check("all-65536 K=2^20", full(8, 1 << 20), full(1 << 20, 130))
+    # -- every Z the NTT takes up to 2^16, ragged widths, all-65536 ------
     for Z, C in [(4096, 1003), (2, 1001), (64, (1 << 20) + 5), (1, 7)] + [
-            (1 << h, 1000 + 3 * h + 1) for h in range(8)]:
+            (1 << h, 1000 + 3 * h + 1) for h in range(17)]:
         x = rnd(Z, C)
         for inv in (False, True):
             check(f"ntt Z={Z} C={C} inverse={inv}", ntt(x, inverse=inv),
-                  ntt_plain(x, inverse=inv), ntt_name(Z))
-    x = full(64, 4096)
-    for inv in (False, True):
-        check(f"ntt all-65536 inverse={inv}", ntt(x, inverse=inv),
-              ntt_plain(x, inverse=inv), "ntt")
+                  ntt_plain(x, inverse=inv), ntt_names(Z))
+    for Z, C in [(64, 4096)] + [(1 << h, 257) for h in range(7, 17)]:
+        x = full(Z, C)
+        for inv in (False, True):
+            check(f"ntt all-65536 Z={Z} inverse={inv}", ntt(x, inverse=inv),
+                  ntt_plain(x, inverse=inv), ntt_names(Z))
 
     # -- main-path shapes, checked and timed --------------------------------
     W = 1 << 18
@@ -208,58 +250,80 @@ def kernel_phase(gen):
                     (256, "degraded read: (256 x 256) . (256 x 2^18)")]:
         a, b = rnd(M, 256), rnd(256, W)
         got = gf_matmul(a, b)
-        check(f"gf_matmul {what}", got, gf_matmul_plain(a, b), "gf_matmul")
+        check(f"gf_matmul {what}", got, gf_matmul_plain(a, b), ("gf_matmul",))
 
         def library(a=a, b=b):
             return torch.remainder(torch.matmul(a.double(), b.double()), Q)
 
         check(f"library yardstick {what}", library(), got)  # exact < 2^53
         nbytes = 4 * (M * 256 + 256 * W + M * W)
-        rows.append(("gf_matmul", what, nbytes, imma_macs(a, b), INT8_MAC_PER_S,
-                     M * 256 * W, time_ms(lambda: gf_matmul(a, b), 20),
-                     time_ms(lambda: gf_matmul_plain(a, b), 3),
-                     time_ms(library, 5)))
-    for Z, C, inv, what in [
-            (64, 4 * W, True, "inverse (64 x 2^20)"),
-            (64, 4 * W, False, "forward (64 x 2^20)"),
-            (DFT_K, DFT_W, False, "forward (4096 x 2^12)")]:
+        rows.append(dict(
+            name="gf_matmul", what=what, main=True, nbytes=nbytes,
+            ops=imma_macs(a, b), rate=INT8_MAC_PER_S, mads=M * 256 * W,
+            k_ms=time_ms(lambda: gf_matmul(a, b), 20),
+            p_ms=time_ms(lambda: gf_matmul_plain(a, b), 3),
+            l_ms=time_ms(library, 5)))
+    # main = a shape a main path gives the kernel (summed into its entry of
+    # the kernels line); above 4096 the row times the route (ntt_outer then
+    # ntt_slab, the other way round for the inverse) and, apart, ntt_outer
+    for Z, C, inv, main, what in [
+            (64, 4 * W, True, True, "inverse (64 x 2^20)"),
+            (64, 4 * W, False, True, "forward (64 x 2^20)"),
+            (DFT_K, DFT_W, False, True, "forward (4096 x 2^12)"),
+            (DFT_K, DFT_W, True, False, "inverse (4096 x 2^12)"),
+            (DFT_BIG_K, DFT_W, False, True, "route forward (8192 x 2^12)"),
+            (DFT_BIG_K, DFT_W, True, False, "route inverse (8192 x 2^12)"),
+            (1 << 16, 1 << 10, False, False, "route forward (65536 x 2^10)"),
+            (1 << 16, 1 << 10, True, False, "route inverse (65536 x 2^10)")]:
         x = rnd(Z, C)
-        name = ntt_name(Z)
+        names = ntt_names(Z)
         got = ntt(x, inverse=inv)
-        check(f"ntt {what}", got, ntt_plain(x, inverse=inv), name)
-        D = permuted_dft_matrix(FERMAT, Z, 2)
-        mat = gauss_inverse(FERMAT, D) if inv else D
-        dt = torch.as_tensor(np.asarray(mat.T, np.float64), device=dev)
+        check(f"ntt {what}", got, ntt_plain(x, inverse=inv), names)
+        library = None
+        if Z <= DFT_BIG_K:  # the (Z, Z) float64 matrix: 512 MiB at 8192
+            dt = dft_matrix(Z, inv, dev)
 
-        def library(x=x, dt=dt):
-            return torch.remainder(dt @ x.double(), Q)  # exact: < Z 2^32
+            def library(x=x, dt=dt):
+                return torch.remainder(dt @ x.double(), Q)  # exact: < Z 2^32
 
-        check(f"library yardstick ntt {what}", library(), got)
+            check(f"library yardstick ntt {what}", library(), got)
         H = Z.bit_length() - 1
         ops = 3 * (Z // 2 * H * C) + (Z * C if inv else 0)  # mul, add, sub; scale
-        rows.append((name, what, 8 * Z * C + 4 * H * Z // 2, ops,
-                     INT32_MAD_PER_S, None,
-                     time_ms(lambda: ntt(x, inverse=inv), 50),
-                     time_ms(lambda: ntt_plain(x, inverse=inv), 3),
-                     time_ms(library, 3)))
+        row = dict(name=names[0], what=what, main=main, nbytes=8 * Z * C,
+                   ops=ops, rate=INT32_MAD_PER_S, mads=None,
+                   k_ms=time_ms(lambda: ntt(x, inverse=inv), 30),
+                   p_ms=time_ms(lambda: ntt_plain(x, inverse=inv), 3),
+                   l_ms=time_ms(library, 3) if library else None)
+        if Z > SLAB_MAX_Z:
+            row["outer_ms"] = time_ms(lambda: outer_only(x, inv), 30)
+        rows.append(row)
+        del x, got, library
 
     summary = {}
-    for name, what, nbytes, ops, rate, mads, k_ms, p_ms, l_ms in rows:
-        b_ms, b_by = bound(nbytes, ops, rate)
-        line = {"kernel": name, "design": DESIGNS[name], "shape": what,
-                "bytes": nbytes, "ops": ops, "kernel_ms": k_ms,
-                "plain_ms": p_ms, "library_ms": l_ms, "bound_ms": b_ms,
-                "bound_by": b_by, "bound_share": b_ms / k_ms}
-        if mads is not None:  # the same work on the CUDA cores' INT32 lanes
-            line["int32_bound_ms"] = bound(nbytes, mads, INT32_MAD_PER_S)[0]
+    for r in rows:
+        b_ms, b_by = bound(r["nbytes"], r["ops"], r["rate"])
+        line = {"kernel": r["name"], "design": DESIGNS[r["name"]],
+                "shape": r["what"], "main_path_shape": r["main"],
+                "bytes": r["nbytes"], "ops": r["ops"], "kernel_ms": r["k_ms"],
+                "plain_ms": r["p_ms"], "library_ms": r["l_ms"],
+                "bound_ms": b_ms, "bound_by": b_by,
+                "bound_share": b_ms / r["k_ms"]}
+        if r["mads"] is not None:  # the same work on the CUDA cores' INT32 lanes
+            line["int32_bound_ms"] = bound(r["nbytes"], r["mads"],
+                                           INT32_MAD_PER_S)[0]
+        if "outer_ms" in r:  # ntt_outer alone: one read and one write
+            line["outer_ms"] = r["outer_ms"]
+            line["outer_bound_share"] = b_ms / r["outer_ms"]
         print(json.dumps(line))
-        s = summary.setdefault(name, {"shapes": [], "ms": 0.0, "plain_ms": 0.0,
-                                      "library_ms": 0.0, "bound_ms": 0.0,
-                                      "bound_by": b_by})
-        s["shapes"].append(what)
-        s["ms"] += k_ms
-        s["plain_ms"] += p_ms
-        s["library_ms"] += l_ms
+        if not r["main"]:
+            continue
+        s = summary.setdefault(r["name"], {"shapes": [], "ms": 0.0,
+                                           "plain_ms": 0.0, "library_ms": 0.0,
+                                           "bound_ms": 0.0, "bound_by": b_by})
+        s["shapes"].append(r["what"])
+        s["ms"] += r["k_ms"]
+        s["plain_ms"] += r["p_ms"]
+        s["library_ms"] += r["l_ms"]
         s["bound_ms"] += b_ms
     for name, s in summary.items():
         s["max_abs_err"] = worst[name]
@@ -315,11 +379,12 @@ def read_counts() -> dict:
 
     return {"gf_matmul": gf_matmul.launches,
             "ntt": ntt.launches_by_kernel["registers"],
-            "ntt_slab": ntt.launches_by_kernel["slab"]}
+            "ntt_slab": ntt.launches_by_kernel["slab"],
+            "ntt_outer": ntt.launches_by_kernel["outer"]}
 
 
 def main_path_phase():
-    """Returns each kernel's launches summed over the three paths, each
+    """Returns each kernel's launches summed over the four paths, each
     path counted from 0 just before it to just after it."""
     import numpy as np
 
@@ -367,11 +432,14 @@ def main_path_phase():
                       len(dead), "launches": launches, "read_exact": True,
                       "rebuild_exact": True}))
 
-    # the other two encode routes: dense field matmul and a large dft
-    for spec, W, impl, kernel in [
+    # the other encode routes: dense field matmul and two large dfts
+    for spec, W, impl, kernels, cols in [
             (CodeSpec(kind="universal", K=256, R=64, seed=0), MAIN_W, "dense",
-             "gf_matmul"),
-            (CodeSpec(kind="dft", K=DFT_K, R=DFT_K), DFT_W, "ntt", "ntt_slab")]:
+             ("gf_matmul",), 64),
+            (CodeSpec(kind="dft", K=DFT_K, R=DFT_K), DFT_W, "ntt",
+             ("ntt_slab",), 64),
+            (CodeSpec(kind="dft", K=DFT_BIG_K, R=DFT_BIG_K), DFT_W, "ntt",
+             ("ntt_outer", "ntt_slab"), BIG_CHECK_COLS)]:
         x = rng.integers(0, Q, (spec.K, W), dtype=np.int64)
         reset_counts()
         system = CodedSystem(spec, backend="local", trace=True)
@@ -381,10 +449,11 @@ def main_path_phase():
         system.close()
         print(json.dumps({"path": f"encode {spec.kind} K={spec.K} R={spec.R} "
                           f"W={W}", "launches": counts}))
-        need(counts[kernel] >= 1, f"{spec}: no {kernel} kernel launch")
+        for kernel in kernels:
+            need(counts[kernel] >= 1, f"{spec}: no {kernel} kernel launch")
         need(y.shape == (spec.R, W), y.shape)
-        need(np.array_equal(oracle_parity(system.encode_plan.A, x[:, :64]),
-                            y[:, :64]), f"{spec}: parity differs from x^T A")
+        need(np.array_equal(oracle_parity(system.encode_plan.A, x[:, :cols]),
+                            y[:, :cols]), f"{spec}: parity differs from x^T A")
         for name, n in counts.items():
             total[name] += n
     return total
@@ -408,9 +477,12 @@ def main() -> int:
     print(json.dumps({"build_s": time.perf_counter() - t0,
                       "built": sorted(logs)}))
     for name, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"{name}: {line.strip()}")
+        for fn in re.split(r"Compiling entry function ", log)[1:]:
+            regs = re.search(r"Used (\d+) registers", fn)
+            spill = re.search(r"(\d+) bytes spill stores", fn)
+            print(json.dumps({"ptxas": name, "kernel": fn.split("'")[1],
+                              "registers": int(regs.group(1)),
+                              "spill_store_bytes": int(spill.group(1))}))
     imma = sass_count(build, "gf_matmul", "IMMA")
     print(json.dumps({"sass": "gf_matmul", "imma_instructions": imma}))
     need(imma > 0, "no integer tensor-core instruction in gf_matmul's SASS")
@@ -431,7 +503,9 @@ def main() -> int:
                "ntt": ("src/repro_torch/csrc/ntt.cu",
                        "src/repro/kernels/ntt.py:80"),
                "ntt_slab": ("src/repro_torch/csrc/ntt.cu",
-                            "src/repro/kernels/ntt.py:80")}
+                            "src/repro/kernels/ntt.py:80"),
+               "ntt_outer": ("src/repro_torch/csrc/ntt.cu",
+                             "src/repro/kernels/ntt.py:80")}
     kernels = []
     for name, (source, replaces) in sources.items():
         s = summary[name]

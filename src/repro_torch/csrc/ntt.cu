@@ -2,43 +2,84 @@
 // local encode (the paper's permuted DFT D_Z Pi, Sec. V-A).
 //
 // Replaces the TPU kernel `_ntt_kernel` of src/repro/kernels/ntt.py (body
-// `_ntt_stages`, launched by `ntt`).  It computes the same thing in the same
-// order: the forward transform runs decimation-in-frequency stages
-// h = 0 .. H-1 (u' = u + v, v' = (u - v) w), leaving the output in
-// bit-reversed order; the inverse runs h = H-1 .. 0 with the inverse twiddles
-// (u' = u + v w, v' = u - v w) and then scales by Z^-1.  The twiddle of the
-// b-th butterfly of stage h is tw[h, b], as in `ntt_twiddles`.  Here the
-// Z^-1 scale is folded into the write-back (`scale`; 1 for the forward
-// transform), which gives the same values as the separate multiply.  All
-// arithmetic is exact mod q: products of two residues (<= 2^32) are folded
-// with 2^16 == -1 (mod q).
+// `_ntt_stages`, launched by `ntt`).  It computes the same function: the
+// forward transform runs decimation-in-frequency (DIF) stages h = 0 .. H-1
+// (u' = u + v, v' = (u - v) w), leaving the output in bit-reversed order; the
+// inverse runs h = H-1 .. 0 with the inverse twiddles (u' = u + v w,
+// v' = u - v w) and then scales by Z^-1.  The twiddle of the b-th butterfly
+// of stage h is root^((b mod half) 2^h), half = Z / 2^(h+1), as in
+// `ntt_twiddles`.  All arithmetic is exact mod q (products of two residues,
+// <= 2^32, are folded with 2^16 == -1), so any exact factorisation of the
+// transform gives the same output bit for bit; the kernels below regroup the
+// stages, and only the bit-reversed output order and the inverse's Z^-1 scale
+// are fixed.  Z is any power of two dividing q - 1 (Z <= 2^16), the domain of
+// `ntt_twiddles`.
 //
 // Bound on this card: each element is read once and written once and takes
-// log2 Z butterflies of a few integer operations, so the transform is bound
-// by memory bytes: at the main path's (64, 2^20), 536.9 MB at 3.35 TB/s =
+// log2 Z butterflies of a few integer operations, so one pass is bound by
+// memory bytes: at the rs codeword's (64, 2^20), 536.9 MB at 3.35 TB/s =
 // 0.160 ms; at the dft encode's (4096, 2^12), 134.2 MB = 0.040 ms.
 //
-// Two kernels; the wrapper picks by Z.
+// Three kernels; the wrapper picks by Z.
 //
 // ntt_regs (Z <= 64, the rs codeword's Z = 64): each thread owns one column
 // and holds all Z values in registers.  Row r of column c is x[r C + c], so
 // the warp's loads and stores are coalesced and each thread has Z
 // independent loads in flight.  The kernel is templated on H = log2 Z and
-// fully unrolled, so every register index and every twiddle index is a
-// compile-time constant: no local memory, no shared memory, no barrier.  The
-// twiddles are a kernel parameter (constant memory, the same word for every
-// thread: a broadcast operand); butterflies whose twiddle is root^0 = 1 skip
-// the multiply.
+// fully unrolled (`dif` below), so every register index and every twiddle
+// index is a compile-time constant: no local memory, no shared memory, no
+// barrier.  The Z/2 powers of the root are a kernel parameter (constant
+// memory, the same word for every thread: a broadcast operand); butterflies
+// whose twiddle is root^0 = 1 skip the multiply.
 //
-// ntt_slab (64 < Z <= 4096): one block holds a (Z, bw) column slab in shared
-// memory for all log2 Z stages, so device memory is touched only by the one
-// coalesced load and the one store; bw shrinks as Z grows so that
-// Z * bw * 4 bytes fits in a block's shared memory (Z = 128: bw = 128,
-// 64 KiB; Z = 4096: bw = 8, 128 KiB).  Z above 4096 needs a four-step split
-// (later work); the wrapper refuses it.
+// ntt_slab (64 < Z <= 4096): two register passes joined by one exchange
+// through shared memory.  Write Z = Z1 Z2 (Z1 = 2^floor(H/2), Z2 = Z / Z1,
+// both <= 64) and row r = a Z2 + j (a < Z1, j < Z2).  The first log2 Z1 DIF
+// stages pair only rows with the same j, and their twiddle
+// root^((a' Z2 + j) 2^h) splits into root_Z1^(a' 2^h) times root^(j 2^h); so
+// they are a pure Z1-point DIF of the strided sequence x[j + a Z2] (twiddles
+// root_Z1 = root^Z2) followed by one "twist" multiply of position a by
+// root^(j rev(a)), rev over log2 Z1 bits.  The remaining stages are a pure
+// Z2-point DIF (root_Z2 = root^Z1) of each contiguous block of Z2 rows.  A
+// block of 512 threads owns BW = 512 / Z1 columns.  Pass A: thread (p, c)
+// loads the values of sequences j = p (and j = p + Z1 when H is odd) of
+// column c straight from device memory (consecutive threads on consecutive
+// columns: a warp covers whole 32-byte sectors), runs the Z1-point DIF in
+// registers and writes them to shared memory once; one barrier; pass B: the
+// thread reads back block a = p (Z2 contiguous rows), multiplies it by row p
+// of the (Z1, Z2) twist table (16-byte loads through L1), runs the Z2-point
+// DIF in registers and stores.  The inverse runs the same steps backwards
+// (pass B's inverse stages, the inverse twist with Z^-1 folded into its
+// table, exchange, pass A's inverse stages), so the scale costs no extra
+// multiply.  That is one trip through shared memory and one barrier in
+// place of H of each.  The kernel is templated on (log2 Z1, log2 Z2): every
+// register and twiddle index is a compile-time constant, and the pass
+// twiddles are a kernel parameter (64 words, the constant bank).  The shared
+// slab is padded by BW words after every block of Z2 rows, so both the
+// strided accesses of pass A and the blocked ones of pass B fall on 32
+// distinct banks.  At Z = 4096 a block holds 64 values a thread in 128
+// registers and a 133 KB slab, so one block runs on an SM at a time and its
+// loads, arithmetic and stores do not overlap; blocks of 256 threads and 4
+// columns would let two share an SM but leave each warp half of every
+// 32-byte sector, and ran slower.  Every product with a stage twiddle or a
+// forward twist factor takes the 32-bit `mulmod_tw`.
+//
+// ntt_outer (4096 < Z <= 2^16): Z = Z0 * 4096 with Z0 <= 16.  By the same
+// split, the first log2 Z0 DIF stages are a pure Z0-point DIF of each
+// sequence x[j + a 4096] followed by the twist root^(j rev(a)); after them
+// each block of 4096 contiguous rows is an independent 4096-point DIF with
+// root_4096 = root^Z0, which ntt_slab runs on the (Z0, 4096, C) view (grid.y
+// = Z0).  ntt_outer gives each thread one (j, column) pair, its Z0 values in
+// registers; a warp covers 32 consecutive columns of one row.  Forward:
+// ntt_outer then ntt_slab; inverse: ntt_slab (scale 1) then ntt_outer's
+// inverse (inverse twist with Z^-1 folded in, then the Z0-point inverse
+// stages).  Two passes over device memory, so at best half the one-pass
+// bound.  Both kernels may run in place (x == out): every thread reads all of
+// its values before it writes any, and the slab's blocks own disjoint
+// columns.
 //
 // Layouts: x and out (Z, C) row-major int32 holding values in [0, q), read as
-// uint32; tw (H, Z/2) uint32.  Ragged C is masked here.
+// uint32.  Ragged C is masked here.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -46,118 +87,265 @@
 namespace {
 
 constexpr uint32_t kQ = 65537u;
-constexpr int THREADS = 256;
+
+// Reductions mod q written as an unsigned min, which Hopper executes as one
+// fused add-and-min (VIADDMNMX): for s in [0, 2q), min(s, s - q) is s mod q,
+// since s - q wraps to a large value when s < q.
 
 // a * b mod q for a, b in [0, q): the product p <= 2^32 needs 64 bits.  With
 // p = hi * 2^16 + lo and 2^16 == -1 (mod q), p == lo - hi, and
-// lo + q - hi lies in (0, 2q), so one conditional subtract finishes it.
+// lo + q - hi lies in (0, 2q).
 __device__ __forceinline__ uint32_t mulmod(uint32_t a, uint32_t b) {
   const unsigned long long p = (unsigned long long)a * b;
   const uint32_t lo = (uint32_t)(p & 0xFFFFull);
   const uint32_t hi = (uint32_t)(p >> 16);  // <= 2^16
   const uint32_t r = lo + kQ - hi;
-  return r >= kQ ? r - kQ : r;
+  return min(r, r - kQ);
+}
+
+// a * w mod q for a in [0, q) and w in [0, q - 1) (never 65536 == -1): the
+// product is below 2^32, so 32 bits hold it.  Every stage twiddle qualifies
+// (root_N^e with e < N / 2 is never -1), and so does every forward twist
+// factor root^(j rev(a)) (j rev(a) < Z can never be Z / 2: both factors
+// would be powers of two whose exponents sum to H - 1, but they sum to at
+// most H - 2).
+__device__ __forceinline__ uint32_t mulmod_tw(uint32_t a, uint32_t w) {
+  const uint32_t p = a * w;
+  const uint32_t r = (p & 0xFFFFu) + kQ - (p >> 16);
+  return min(r, r - kQ);
 }
 
 __device__ __forceinline__ uint32_t addmod(uint32_t a, uint32_t b) {
   const uint32_t s = a + b;
-  return s >= kQ ? s - kQ : s;
+  return min(s, s - kQ);
 }
 
 __device__ __forceinline__ uint32_t submod(uint32_t a, uint32_t b) {
-  return a >= b ? a - b : a + kQ - b;
+  const uint32_t d = a - b;
+  return min(d, d + kQ);
 }
 
-__global__ void __launch_bounds__(THREADS)
-ntt_slab(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
-           const uint32_t* __restrict__ tw, int H, long long C, int lbw,
-           uint32_t scale, int inverse) {
-  extern __shared__ uint32_t s[];  // (Z, bw) slab; Z = 2^H and bw = 2^lbw
-  const int bw = 1 << lbw;
-  const long long c0 = (long long)blockIdx.x * bw;
-  const int n = bw << H;
-
-  for (int i = threadIdx.x; i < n; i += THREADS) {
-    const int r = i >> lbw, c = i & (bw - 1);
-    s[i] = (c0 + c < C) ? x[(long long)r * C + c0 + c] : 0u;
-  }
-  __syncthreads();
-
-  const int nb = n >> 1;  // butterflies per stage: (Z / 2) * bw
-  for (int t = 0; t < H; ++t) {
-    const int h = inverse ? H - 1 - t : t;
-    const int lhalf = H - 1 - h;  // half = Z >> (h + 1) = 2^lhalf
-    const uint32_t* twh = tw + ((long long)h << (H - 1));
-    for (int i = threadIdx.x; i < nb; i += THREADS) {
-      // butterfly b in group g = b / half, offset j = b % half: rows
-      // u = g * 2 * half + j and u + half; consecutive threads take
-      // consecutive columns, so shared-memory accesses do not conflict
-      const int b = i >> lbw, c = i & (bw - 1);
-      const int g = b >> lhalf, j = b & ((1 << lhalf) - 1);
-      const int u = (((g << (lhalf + 1)) + j) << lbw) + c;
-      const int v = u + (1 << (lhalf + lbw));
-      const uint32_t w = __ldg(twh + b);
-      const uint32_t xu = s[u], xv = s[v];
-      if (inverse) {
-        const uint32_t m = mulmod(xv, w);
-        s[u] = addmod(xu, m);
-        s[v] = submod(xu, m);
+// In-place pure N-point DIF (N = 2^L) on v[0 .. N) in registers, or its
+// stagewise inverse: stage h pairs v[u], v[u + half] with twiddle
+// tw[(u mod half) << h], tw[e] = root_N^e (e < N / 2; the inverse root's
+// powers for the inverse).  Fully unrolled: every index is a constant.
+template <int L, bool INV>
+__device__ __forceinline__ void dif(uint32_t* v, const uint32_t* tw) {
+  constexpr int N = 1 << L;
+#pragma unroll
+  for (int t = 0; t < L; ++t) {
+    const int h = INV ? L - 1 - t : t;
+    const int half = N >> (h + 1);
+#pragma unroll
+    for (int b = 0; b < N / 2; ++b) {
+      const int j = b % half;
+      const int u = (b / half) * 2 * half + j;
+      if (INV) {
+        const uint32_t m = j == 0 ? v[u + half] : mulmod_tw(v[u + half], tw[j << h]);
+        v[u + half] = submod(v[u], m);
+        v[u] = addmod(v[u], m);
       } else {
-        s[u] = addmod(xu, xv);
-        s[v] = mulmod(submod(xu, xv), w);
+        const uint32_t d = submod(v[u], v[u + half]);
+        v[u] = addmod(v[u], v[u + half]);
+        v[u + half] = j == 0 ? d : mulmod_tw(d, tw[j << h]);
       }
     }
-    __syncthreads();
   }
+}
 
-  for (int i = threadIdx.x; i < n; i += THREADS) {
-    const int r = i >> lbw, c = i & (bw - 1);
-    if (c0 + c < C) {
-      const uint32_t y = scale == 1u ? s[i] : mulmod(s[i], scale);
-      out[(long long)r * C + c0 + c] = y;
+// ---------------------------------------------------------------------------
+// ntt_slab: 64 < Z <= 4096 (see above)
+// ---------------------------------------------------------------------------
+
+constexpr int SLAB_THREADS = 512;  // Z1 threads a column x BW = 512 / Z1 columns
+
+struct PassTwiddles {  // kernel parameter (constant bank)
+  uint32_t w1[32];     // pass A: root_Z1^e = root^(Z2 e), e < Z1 / 2
+  uint32_t w2[32];     // pass B: root_Z2^e = root^(Z1 e), e < Z2 / 2
+};
+
+// v[i] *= t[i] for i < N: one row of the twist table, 16 bytes a load.  The
+// forward's factors are never 65536 and t[0] = 1; the inverse's hold Z^-1.
+template <int N, bool INV>
+__device__ __forceinline__ void twist_row(uint32_t* v, const uint32_t* t) {
+  const uint4* t4 = reinterpret_cast<const uint4*>(t);
+#pragma unroll
+  for (int i = 0; i < N / 4; ++i) {
+    const uint4 f = __ldg(t4 + i);
+    if (INV) {
+      v[4 * i] = mulmod(v[4 * i], f.x);
+      v[4 * i + 1] = mulmod(v[4 * i + 1], f.y);
+      v[4 * i + 2] = mulmod(v[4 * i + 2], f.z);
+      v[4 * i + 3] = mulmod(v[4 * i + 3], f.w);
+    } else {
+      if (i > 0) v[4 * i] = mulmod_tw(v[4 * i], f.x);
+      v[4 * i + 1] = mulmod_tw(v[4 * i + 1], f.y);
+      v[4 * i + 2] = mulmod_tw(v[4 * i + 2], f.z);
+      v[4 * i + 3] = mulmod_tw(v[4 * i + 3], f.w);
     }
   }
 }
+
+template <int L1, int L2, bool INV>
+__global__ void __launch_bounds__(SLAB_THREADS, 1)
+ntt_slab(const uint32_t* x, uint32_t* out, const uint32_t* __restrict__ twist,
+         long long C, const __grid_constant__ PassTwiddles tw) {
+  constexpr int Z1 = 1 << L1, Z2 = 1 << L2;
+  constexpr int BW = SLAB_THREADS >> L1;  // columns per block
+  constexpr int S = Z2 / Z1;              // pass-A sequences per thread: 1 or 2
+  constexpr int BLK = (Z2 + 1) * BW;      // shared words per padded block of Z2 rows
+  extern __shared__ uint32_t s[];         // (Z1, Z2 + 1, BW): rows a Z2 + j, padded
+  const int c = threadIdx.x % BW, p = threadIdx.x / BW;
+  const long long col = (long long)blockIdx.x * BW + c;
+  const bool live = col < C;
+  // batch blockIdx.y: rows [y Z, (y + 1) Z) of a (batches * Z, C) array
+  const long long base = (long long)blockIdx.y * (Z1 * Z2) * C + col;
+  const uint32_t* xb = x + base;
+  uint32_t* ob = out + base;
+  const uint32_t* trow = twist + p * Z2;  // block a = p's twist factors
+  uint32_t v[Z2];
+
+  if (!INV) {
+    // pass A: sequences j = p + i Z1, rows j + a Z2, straight from memory
+#pragma unroll
+    for (int i = 0; i < S; ++i)
+#pragma unroll
+      for (int a = 0; a < Z1; ++a)
+        v[i * Z1 + a] = live ? __ldcs(xb + (long long)(p + i * Z1 + a * Z2) * C) : 0u;
+#pragma unroll
+    for (int i = 0; i < S; ++i) {
+      dif<L1, false>(v + i * Z1, tw.w1);
+#pragma unroll
+      for (int a = 0; a < Z1; ++a) s[a * BLK + (p + i * Z1) * BW + c] = v[i * Z1 + a];
+    }
+    __syncthreads();
+    // pass B: block a = p (rows p Z2 + i), the twist, then its DIF
+#pragma unroll
+    for (int i = 0; i < Z2; ++i) v[i] = s[p * BLK + i * BW + c];
+    twist_row<Z2, false>(v, trow);
+    dif<L2, false>(v, tw.w2);
+    if (live) {
+#pragma unroll
+      for (int i = 0; i < Z2; ++i) __stcs(ob + (long long)(p * Z2 + i) * C, v[i]);
+    }
+  } else {
+    // pass B's inverse stages and the inverse twist on block p, from memory
+#pragma unroll
+    for (int i = 0; i < Z2; ++i)
+      v[i] = live ? __ldcs(xb + (long long)(p * Z2 + i) * C) : 0u;
+    dif<L2, true>(v, tw.w2);
+    twist_row<Z2, true>(v, trow);
+#pragma unroll
+    for (int i = 0; i < Z2; ++i) s[p * BLK + i * BW + c] = v[i];
+    __syncthreads();
+    // pass A's inverse stages on sequences j = p + i Z1
+#pragma unroll
+    for (int i = 0; i < S; ++i) {
+#pragma unroll
+      for (int a = 0; a < Z1; ++a) v[i * Z1 + a] = s[a * BLK + (p + i * Z1) * BW + c];
+      dif<L1, true>(v + i * Z1, tw.w1);
+    }
+    if (live) {
+#pragma unroll
+      for (int i = 0; i < S; ++i)
+#pragma unroll
+        for (int a = 0; a < Z1; ++a)
+          __stcs(ob + (long long)(p + i * Z1 + a * Z2) * C, v[i * Z1 + a]);
+    }
+  }
+}
+
+template <int L1, int L2>
+cudaError_t launch_slab(const uint32_t* x, uint32_t* out, const uint32_t* twist,
+                        const PassTwiddles& tw, long long C, int batches,
+                        bool inverse, cudaStream_t stream) {
+  constexpr int BW = SLAB_THREADS >> L1;
+  constexpr size_t smem = (size_t)(1 << L1) * ((1 << L2) + 1) * BW * sizeof(uint32_t);
+  void (*kernel)(const uint32_t*, uint32_t*, const uint32_t*, long long,
+                 const PassTwiddles) =
+      inverse ? ntt_slab<L1, L2, true> : ntt_slab<L1, L2, false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((unsigned)((C + BW - 1) / BW), (unsigned)batches);
+  kernel<<<grid, SLAB_THREADS, smem, stream>>>(x, out, twist, C, tw);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// ntt_outer: the leading log2 Z0 stages of 4096 < Z <= 2^16 (see above)
+// ---------------------------------------------------------------------------
+
+constexpr int OUTER_ROWS = 4096;      // the inner transform ntt_slab finishes
+constexpr int OUTER_THREADS = 256;    // 32 columns x 8 sequences j
+constexpr int OUTER_MAX_L = 4;        // Z0 <= 16
+
+struct OuterTwiddles {  // kernel parameter: root_Z0^e = root^(4096 e), e < Z0 / 2
+  uint32_t w[1 << (OUTER_MAX_L - 1)];
+};
+
+template <int L0, bool INV>
+__global__ void __launch_bounds__(OUTER_THREADS)
+ntt_outer(const uint32_t* x, uint32_t* out, const uint32_t* __restrict__ twist,
+          long long C, const __grid_constant__ OuterTwiddles tw) {
+  constexpr int Z0 = 1 << L0;
+  const long long col = (long long)blockIdx.x * 32 + threadIdx.x % 32;
+  const int j = blockIdx.y * (OUTER_THREADS / 32) + threadIdx.x / 32;
+  if (col >= C) return;
+  const uint32_t* xb = x + (long long)j * C + col;
+  uint32_t* ob = out + (long long)j * C + col;
+  uint32_t v[Z0];
+#pragma unroll
+  for (int a = 0; a < Z0; ++a) v[a] = __ldcs(xb + (long long)a * OUTER_ROWS * C);
+  if (!INV) {
+    dif<L0, false>(v, tw.w);
+#pragma unroll
+    for (int a = 1; a < Z0; ++a)  // twist root^(j rev(a)); 1 at a = 0
+      v[a] = mulmod_tw(v[a], __ldg(twist + a * OUTER_ROWS + j));
+  } else {
+#pragma unroll
+    for (int a = 0; a < Z0; ++a)  // inverse twist, Z^-1 folded in
+      v[a] = mulmod(v[a], __ldg(twist + a * OUTER_ROWS + j));
+    dif<L0, true>(v, tw.w);
+  }
+#pragma unroll
+  for (int a = 0; a < Z0; ++a) __stcs(ob + (long long)a * OUTER_ROWS * C, v[a]);
+}
+
+template <int L0>
+cudaError_t launch_outer(const uint32_t* x, uint32_t* out, const uint32_t* twist,
+                         const OuterTwiddles& tw, long long C, bool inverse,
+                         cudaStream_t stream) {
+  const dim3 grid((unsigned)((C + 31) / 32), OUTER_ROWS / (OUTER_THREADS / 32));
+  if (inverse)
+    ntt_outer<L0, true><<<grid, OUTER_THREADS, 0, stream>>>(x, out, twist, C, tw);
+  else
+    ntt_outer<L0, false><<<grid, OUTER_THREADS, 0, stream>>>(x, out, twist, C, tw);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// ntt_regs: Z <= 64 (see above)
+// ---------------------------------------------------------------------------
 
 constexpr int REG_THREADS = 128;
 constexpr int REG_MAX_H = 6;  // Z <= 64
 
-struct Twiddles {  // (H, Z/2) row-major, passed by value: constant memory
-  uint32_t w[REG_MAX_H << (REG_MAX_H - 1)];
+struct Twiddles {  // kernel parameter: root^e, e < Z / 2 (the constant bank)
+  uint32_t w[1 << (REG_MAX_H - 1)];
 };
 
 template <int H, bool INV>
 __global__ void __launch_bounds__(REG_THREADS)
 ntt_regs(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
-         long long C, uint32_t scale, const Twiddles tw) {
+         long long C, uint32_t scale, const __grid_constant__ Twiddles tw) {
   constexpr int Z = 1 << H;
   const long long c = (long long)blockIdx.x * REG_THREADS + threadIdx.x;
   if (c >= C) return;
   uint32_t v[Z];
 #pragma unroll
   for (int r = 0; r < Z; ++r) v[r] = __ldcs(x + r * C + c);  // read once
-#pragma unroll
-  for (int t = 0; t < H; ++t) {
-    const int h = INV ? H - 1 - t : t;
-    const int half = Z >> (h + 1);
-#pragma unroll
-    for (int b = 0; b < Z / 2; ++b) {
-      // butterfly b in group b / half, offset j = b % half: rows u, u + half;
-      // its twiddle root^(j 2^h) is 1 at j = 0
-      const int j = b % half;
-      const int u = (b / half) * 2 * half + j;
-      const uint32_t w = tw.w[h * (Z / 2) + b];
-      if (INV) {
-        const uint32_t m = j == 0 ? v[u + half] : mulmod(v[u + half], w);
-        v[u + half] = submod(v[u], m);
-        v[u] = addmod(v[u], m);
-      } else {
-        const uint32_t d = submod(v[u], v[u + half]);
-        v[u] = addmod(v[u], v[u + half]);
-        v[u + half] = j == 0 ? d : mulmod(d, w);
-      }
-    }
-  }
+  dif<H, INV>(v, tw.w);
 #pragma unroll
   for (int r = 0; r < Z; ++r)
     __stcs(out + r * C + c, INV ? mulmod(v[r], scale) : v[r]);  // written once
@@ -177,30 +365,67 @@ cudaError_t launch_regs(const uint32_t* x, uint32_t* out, const Twiddles& tw,
 
 }  // namespace
 
-// out = NTT(x) along axis 0 on `stream` (see above) for Z = 2^H rows, in
-// slabs of bw = 2^lbw columns; shared memory is Z * bw * 4 bytes.  Returns
+// out = the Z-point NTT (see ntt_slab above), Z = 2^H, 7 <= H <= 12, along
+// axis 0 of each of `batches` stacked (Z, C) arrays, on `stream`, in blocks
+// of 512 threads and 512 / Z1 columns.  twist: the (Z1, Z2) twist table in
+// device memory (16-byte aligned); tw_host: the pass twiddles (w1[32],
+// w2[32]) in host memory, copied into the launch's parameters.  x may equal
+// out.  Returns cudaGetLastError() of the launch.
+extern "C" int ntt_slab_launch(const void* x, void* out, const void* twist,
+                               const void* tw_host, int H, long long C,
+                               int batches, int inverse, void* stream) {
+  PassTwiddles tw;
+  const uint32_t* src = (const uint32_t*)tw_host;
+  for (int i = 0; i < 32; ++i) {
+    tw.w1[i] = src[i];
+    tw.w2[i] = src[32 + i];
+  }
+  if (C <= 0 || batches <= 0) return (int)cudaGetLastError();
+  const uint32_t* xi = (const uint32_t*)x;
+  uint32_t* o = (uint32_t*)out;
+  const uint32_t* tt = (const uint32_t*)twist;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const bool inv = inverse != 0;
+  switch (H) {
+    case 7: return (int)launch_slab<3, 4>(xi, o, tt, tw, C, batches, inv, st);
+    case 8: return (int)launch_slab<4, 4>(xi, o, tt, tw, C, batches, inv, st);
+    case 9: return (int)launch_slab<4, 5>(xi, o, tt, tw, C, batches, inv, st);
+    case 10: return (int)launch_slab<5, 5>(xi, o, tt, tw, C, batches, inv, st);
+    case 11: return (int)launch_slab<5, 6>(xi, o, tt, tw, C, batches, inv, st);
+    case 12: return (int)launch_slab<6, 6>(xi, o, tt, tw, C, batches, inv, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// out = the first L0 DIF stages with the twist (forward), or the inverse
+// twist and the last L0 inverse stages (inverse), of a (2^L0 * 4096, C)
+// transform along axis 0 on `stream`, 1 <= L0 <= 4 (see ntt_outer above).
+// twist: the (2^L0, 4096) twist table in device memory; tw_host: the 2^L0 / 2
+// twiddles root^(4096 e) in host memory.  x may equal out.  Returns
 // cudaGetLastError() of the launch.
-extern "C" int ntt_launch(const void* x, void* out, const void* tw, int H,
-                          long long C, int lbw, unsigned int scale, int inverse,
-                          void* stream) {
-  const int bw = 1 << lbw;
-  const size_t smem = ((size_t)bw << H) * sizeof(uint32_t);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        ntt_slab, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
+extern "C" int ntt_outer_launch(const void* x, void* out, const void* twist,
+                                const void* tw_host, int L0, long long C,
+                                int inverse, void* stream) {
+  if (L0 < 1 || L0 > OUTER_MAX_L) return (int)cudaErrorInvalidValue;
+  OuterTwiddles tw = {};
+  const uint32_t* src = (const uint32_t*)tw_host;
+  for (int i = 0; i < (1 << L0) / 2; ++i) tw.w[i] = src[i];
+  if (C <= 0) return (int)cudaGetLastError();
+  const uint32_t* xi = (const uint32_t*)x;
+  uint32_t* o = (uint32_t*)out;
+  const uint32_t* tt = (const uint32_t*)twist;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const bool inv = inverse != 0;
+  switch (L0) {
+    case 1: return (int)launch_outer<1>(xi, o, tt, tw, C, inv, st);
+    case 2: return (int)launch_outer<2>(xi, o, tt, tw, C, inv, st);
+    case 3: return (int)launch_outer<3>(xi, o, tt, tw, C, inv, st);
+    default: return (int)launch_outer<4>(xi, o, tt, tw, C, inv, st);
   }
-  if (C > 0) {
-    const unsigned blocks = (unsigned)((C + bw - 1) / bw);
-    ntt_slab<<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
-        (const uint32_t*)x, (uint32_t*)out, (const uint32_t*)tw, H, C, lbw,
-        scale, inverse);
-  }
-  return (int)cudaGetLastError();
 }
 
 // out = NTT(x) along axis 0 on `stream` for Z = 2^H <= 64 rows, one column a
-// thread in registers; tw_host is the (H, Z/2) twiddle table in host memory
+// thread in registers; tw_host holds the Z/2 powers root^e in host memory
 // (copied into the launch's parameters).  Returns cudaGetLastError().
 extern "C" int ntt_regs_launch(const void* x, void* out, const void* tw_host,
                                int H, long long C, unsigned int scale,
@@ -208,7 +433,7 @@ extern "C" int ntt_regs_launch(const void* x, void* out, const void* tw_host,
   if (H < 0 || H > REG_MAX_H) return (int)cudaErrorInvalidValue;
   Twiddles tw = {};
   const uint32_t* src = (const uint32_t*)tw_host;
-  for (int i = 0; i < (H << H) / 2; ++i) tw.w[i] = src[i];
+  for (int i = 0; i < (1 << H) / 2; ++i) tw.w[i] = src[i];
   if (C <= 0) return (int)cudaGetLastError();
   const uint32_t* xi = (const uint32_t*)x;
   uint32_t* o = (uint32_t*)out;

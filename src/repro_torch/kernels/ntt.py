@@ -1,15 +1,20 @@
-"""`ntt`: batched radix-2 NTT over F_65537, the CUDA kernel of `csrc/ntt.cu`.
+"""`ntt`: batched radix-2 NTT over F_65537, the CUDA kernels of `csrc/ntt.cu`.
 
 Computes, for each of C independent columns of x (Z, C), the Z-point NTT in
 decimation-in-frequency order: output position k holds X[rev(k)], which is
 the paper's permuted DFT D_Z Pi (Sec. V-A).  It replaces the JAX package's
 Pallas TPU kernel (`repro/kernels/ntt.py`, `_ntt_kernel` / `_ntt_stages`);
-the source says how.  The source holds two kernels, picked by Z: for
-Z <= 64 (`REGS_MAX_Z`) each thread keeps one column in registers; above it a
-block keeps a column slab in shared memory.  A CUDA tensor launches one of
-them on the current stream (no synchronise) or raises; a CPU tensor runs the
-plain version `ref.ntt_plain`.  `ntt.launches` counts kernel launches, and
-`ntt.launches_by_kernel` splits them into "registers" and "slab".
+the source says how.  Z is any power of two that divides q - 1
+(1 <= Z <= 2^16, `MAX_Z`), the domain of `ntt_twiddles`.  The source holds
+three kernels, picked by Z: for Z <= 64 (`REGS_MAX_Z`) each thread keeps one
+column in registers ("registers"); up to 4096 (`SLAB_MAX_Z`) two register
+passes meet in one exchange through shared memory ("slab"); above it a
+leading-stages kernel ("outer") and the slab kernel on each block of 4096
+rows share the transform, in that order forward and the other way round for
+the inverse.  A CUDA tensor launches them on the current stream (no
+synchronise) or raises; a CPU tensor runs the plain version `ref.ntt_plain`.
+`ntt.launches` counts kernel launches, and `ntt.launches_by_kernel` splits
+them into "registers", "slab" and "outer".
 """
 from __future__ import annotations
 
@@ -24,12 +29,9 @@ from ..core.field import FERMAT, FERMAT_Q
 from . import build
 from .ref import ntt_plain
 
-MAX_Z = 4096  # one (Z, bw) slab per block in shared memory; a four-step
-              # split would lift this (the TPU kernel has the same limit)
-REGS_MAX_Z = 64  # a whole column in one thread's registers
-
-_TWIDDLES: dict[tuple, torch.Tensor] = {}
-_HOST_TWIDDLES: dict[tuple, np.ndarray] = {}
+MAX_Z = 1 << 16    # the largest power of two dividing q - 1 = 2^16
+REGS_MAX_Z = 64    # a whole column in one thread's registers
+SLAB_MAX_Z = 4096  # Z1 * Z2 with both register passes <= 64 values
 
 
 def ntt_twiddles(K: int, inverse: bool = False) -> np.ndarray:
@@ -47,35 +49,114 @@ def ntt_twiddles(K: int, inverse: bool = False) -> np.ndarray:
     return tw
 
 
-def slab_width(Z: int) -> int:
-    """Columns per block of the slab kernel: a (Z, bw) int32 slab of 64 KiB
-    (Z = 128: bw = 128; 128 KiB at Z = 4096, since bw stops at 8)."""
-    return max(8, min(128, 16384 // Z))
+def _powers(r: int, n: int) -> np.ndarray:
+    """[r^0, r^1, ..., r^(n-1)] mod q as int64."""
+    out = np.empty(n, np.int64)
+    acc = 1
+    for i in range(n):
+        out[i] = acc
+        acc = acc * r % FERMAT_Q
+    return out
 
 
-def _device_twiddles(Z: int, inverse: bool, device) -> torch.Tensor:
-    key = (Z, inverse, device)
-    tw = _TWIDDLES.get(key)
-    if tw is None:
-        tw = _TWIDDLES[key] = torch.as_tensor(
-            ntt_twiddles(Z, inverse).astype(np.int32), device=device)
-    return tw
+def _bitrev(n: int) -> np.ndarray:
+    """rev(a) over log2 n bits for a in [0, n)."""
+    bits = n.bit_length() - 1
+    a = np.arange(n)
+    rev = np.zeros(n, np.int64)
+    for b in range(bits):
+        rev |= ((a >> b) & 1) << (bits - 1 - b)
+    return rev
 
 
-def _host_twiddles(Z: int, inverse: bool) -> np.ndarray:
-    key = (Z, inverse)
-    tw = _HOST_TWIDDLES.get(key)
-    if tw is None:
-        tw = _HOST_TWIDDLES[key] = np.ascontiguousarray(ntt_twiddles(Z, inverse))
-    return tw
+def _twist(r: int, z1: int, z2: int, scale: int) -> np.ndarray:
+    """(z1, z2) table scale * r^(j rev(a)) at [a, j]: the multiply between a
+    pure z1-point DIF of each sequence x[j + a z2] and the z2-point DIFs of
+    the contiguous blocks (r of order z1 * z2)."""
+    pw = _powers(r, z1 * z2)
+    e = (_bitrev(z1)[:, None] * np.arange(z2)[None, :]) % (z1 * z2)
+    return _frozen(pw[e] * scale % FERMAT_Q)
+
+
+def _frozen(a) -> np.ndarray:
+    """A read-only uint32 copy: the cached tables are shared by every call."""
+    a = np.ascontiguousarray(a, np.uint32)
+    a.flags.writeable = False
+    return a
+
+
+def slab_split(Z: int) -> tuple[int, int]:
+    """(Z1, Z2) of the slab kernel: Z1 = 2^floor(H/2), Z2 = Z / Z1."""
+    z1 = 1 << ((Z.bit_length() - 1) // 2)
+    return z1, Z // z1
+
+
+@functools.lru_cache(maxsize=None)
+def slab_tables(Z: int, root: int, scale: int) -> tuple[np.ndarray, np.ndarray]:
+    """Host tables of one slab launch for a Z-point transform with `root` (of
+    order Z; the inverse root for the inverse): the pass twiddles
+    (w1[32] = root^(Z2 e), e < Z1/2; w2[32] = root^(Z1 e), e < Z2/2) and the
+    (Z1, Z2) twist table times `scale` (the inverse's Z^-1, else 1)."""
+    z1, z2 = slab_split(Z)
+    tw = np.zeros(64, np.int64)
+    tw[:z1 // 2] = _powers(pow(root, z2, FERMAT_Q), z1 // 2)
+    tw[32:32 + z2 // 2] = _powers(pow(root, z1, FERMAT_Q), z2 // 2)
+    return _frozen(tw), _twist(root, z1, z2, scale)
+
+
+@functools.lru_cache(maxsize=None)
+def outer_tables(Z: int, root: int, scale: int) -> tuple[np.ndarray, np.ndarray]:
+    """Host tables of the leading-stages launch for Z = Z0 * 4096: the Z0/2
+    twiddles root^(4096 e) and the (Z0, 4096) twist table times `scale`."""
+    z0 = Z // SLAB_MAX_Z
+    tw = _powers(pow(root, SLAB_MAX_Z, FERMAT_Q), z0 // 2)
+    return _frozen(tw), _twist(root, z0, SLAB_MAX_Z, scale)
+
+
+def roots(Z: int, inverse: bool) -> tuple[int, int]:
+    """(root, scale) of a Z-point transform: the root of unity of order Z
+    (its inverse for the inverse transform) and the inverse's Z^-1 (else 1)."""
+    root = FERMAT.root_of_unity(Z)
+    if not inverse:
+        return root, 1
+    return pow(root, FERMAT_Q - 2, FERMAT_Q), pow(Z, FERMAT_Q - 2, FERMAT_Q)
+
+
+_DEVICE_TWIST: dict[tuple, torch.Tensor] = {}
+
+
+def _device_twist(kind: str, Z: int, root: int, scale: int, device) -> tuple:
+    """(host pass twiddles, device twist table) of one launch, cached."""
+    tables = slab_tables if kind == "slab" else outer_tables
+    tw, twist = tables(Z, root, scale)
+    key = (kind, Z, root, scale, device)
+    dev = _DEVICE_TWIST.get(key)
+    if dev is None:
+        dev = _DEVICE_TWIST[key] = torch.as_tensor(
+            twist.astype(np.int32), device=device)
+    return tw, dev
+
+
+@functools.lru_cache(maxsize=None)
+def regs_tables(Z: int, root: int) -> np.ndarray:
+    """The register kernel's twiddles: root^e for e < Z/2 (one word at Z = 1)."""
+    return _frozen(_powers(root, max(1, Z // 2)))
 
 
 @functools.lru_cache(maxsize=None)
 def _slab_launcher():
-    # ntt_launch(x, out, tw, H, C, lbw, scale, inverse, stream)
-    return build.entry("ntt", "ntt_launch",
-                       [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_longlong,
-                                                ctypes.c_int, ctypes.c_uint,
+    # ntt_slab_launch(x, out, twist, tw_host, H, C, batches, inverse, stream)
+    return build.entry("ntt", "ntt_slab_launch",
+                       [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_longlong,
+                                                ctypes.c_int, ctypes.c_int,
+                                                ctypes.c_void_p])
+
+
+@functools.lru_cache(maxsize=None)
+def _outer_launcher():
+    # ntt_outer_launch(x, out, twist, tw_host, L0, C, inverse, stream)
+    return build.entry("ntt", "ntt_outer_launch",
+                       [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_longlong,
                                                 ctypes.c_int, ctypes.c_void_p])
 
 
@@ -88,9 +169,55 @@ def _regs_launcher():
                                                 ctypes.c_void_p])
 
 
+def _launch(kernel: str, err: int) -> None:
+    build.check(err, f"ntt ({kernel})")
+    ntt.launches += 1
+    ntt.launches_by_kernel[kernel] += 1
+
+
+def _slab(x, out, Z: int, root: int, scale: int, batches: int, inverse: bool,
+          stream) -> None:
+    """One slab launch: Z-point transforms of `batches` stacked (Z, C) blocks."""
+    tw, twist = _device_twist("slab", Z, root, scale, x.device)
+    _launch("slab", _slab_launcher()(
+        x.data_ptr(), out.data_ptr(), twist.data_ptr(), tw.ctypes.data,
+        Z.bit_length() - 1, x.shape[1], batches, int(inverse), stream))
+
+
+def _outer(x, out, Z: int, root: int, scale: int, inverse: bool, stream) -> None:
+    tw, twist = _device_twist("outer", Z, root, scale, x.device)
+    L0 = (Z // SLAB_MAX_Z).bit_length() - 1
+    _launch("outer", _outer_launcher()(
+        x.data_ptr(), out.data_ptr(), twist.data_ptr(), tw.ctypes.data, L0,
+        x.shape[1], int(inverse), stream))
+
+
+def _run(x, out, inverse: bool, stream) -> None:
+    """Launch the kernels of one (Z, C) transform x -> out on `stream`."""
+    Z, C = x.shape
+    root, scale = roots(Z, inverse)
+    if Z <= REGS_MAX_Z:
+        tw = regs_tables(Z, root)
+        _launch("registers", _regs_launcher()(
+            x.data_ptr(), out.data_ptr(), tw.ctypes.data, Z.bit_length() - 1, C,
+            scale, int(inverse), stream))
+    elif Z <= SLAB_MAX_Z:
+        _slab(x, out, Z, root, scale, 1, inverse, stream)
+    else:
+        # the 4096-point transforms of the Z0 blocks have root^Z0 (order 4096)
+        z0 = Z // SLAB_MAX_Z
+        sub = pow(root, z0, FERMAT_Q)
+        if inverse:
+            _slab(x, out, SLAB_MAX_Z, sub, 1, z0, True, stream)
+            _outer(out, out, Z, root, scale, True, stream)
+        else:
+            _outer(x, out, Z, root, 1, False, stream)
+            _slab(out, out, SLAB_MAX_Z, sub, 1, z0, False, stream)
+
+
 def ntt(x: torch.Tensor, *, inverse: bool = False) -> torch.Tensor:
     """Batched NTT along axis 0: x (Z, C) int32 in [0, q) -> (Z, C) int32,
-    Z a power of two <= 4096.
+    Z a power of two dividing q - 1 (Z <= 2^16).
 
     Forward: out[k] = sum_j x[j] * beta^(j * rev(k))   (== x @ D_Z Pi).
     Inverse: exact inverse of forward (includes the 1/Z scaling).
@@ -101,10 +228,9 @@ def ntt(x: torch.Tensor, *, inverse: bool = False) -> torch.Tensor:
         raise TypeError(f"ntt takes int32, got {x.dtype}")
     Z, C = x.shape
     H = Z.bit_length() - 1
-    if Z < 1 or 1 << H != Z:
-        raise ValueError(f"ntt needs Z a power of two, got Z={Z}")
-    if Z > MAX_Z:
-        raise ValueError(f"ntt's kernel takes Z <= {MAX_Z}, got Z={Z}")
+    if Z < 1 or 1 << H != Z or Z > MAX_Z:
+        raise ValueError(f"ntt needs Z a power of two dividing q - 1 = "
+                         f"{FERMAT_Q - 1}, got Z={Z}")
     if x.device.type == "cpu":
         return ntt_plain(x, inverse=inverse).to(torch.int32)
     if x.device.type != "cuda":
@@ -114,25 +240,10 @@ def ntt(x: torch.Tensor, *, inverse: bool = False) -> torch.Tensor:
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
-    scale = pow(Z, FERMAT_Q - 2, FERMAT_Q) if inverse else 1
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        if Z <= REGS_MAX_Z:
-            kernel = "registers"
-            tw = _host_twiddles(Z, inverse)
-            err = _regs_launcher()(x.data_ptr(), out.data_ptr(), tw.ctypes.data,
-                                   H, C, scale, int(inverse), stream)
-        else:
-            kernel = "slab"
-            tw = _device_twiddles(Z, inverse, x.device)
-            lbw = slab_width(Z).bit_length() - 1
-            err = _slab_launcher()(x.data_ptr(), out.data_ptr(), tw.data_ptr(),
-                                   H, C, lbw, scale, int(inverse), stream)
-        build.check(err, f"ntt ({kernel})")
-    ntt.launches += 1
-    ntt.launches_by_kernel[kernel] += 1
+        _run(x, out, inverse, torch.cuda.current_stream().cuda_stream)
     return out
 
 
 ntt.launches = 0
-ntt.launches_by_kernel = {"registers": 0, "slab": 0}
+ntt.launches_by_kernel = {"registers": 0, "slab": 0, "outer": 0}

@@ -75,30 +75,45 @@ def test_cuda_gf_matmul_edge_shapes(cuda_device, M, K, N, corner):
     assert torch.equal(got.long(), gf_matmul_plain(a, b))
 
 
+def _ntt_kernels(Z):
+    """The kernels the wrapper launches for a Z-point transform."""
+    if Z <= 64:
+        return {"registers": 1}
+    if Z <= 4096:
+        return {"slab": 1}
+    return {"outer": 1, "slab": 1}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("Z,C", [(1, 5), (2, 999), (64, 4099), (4096, 67)])
+@pytest.mark.parametrize("Z,C", [(1, 5), (2, 999), (64, 4099), (4096, 67),
+                                 (8192, 67), (16384, 33), (65536, 5)])
 def test_cuda_ntt_matches_plain(cuda_device, Z, C):
     x = _cuda_rand(cuda_device, Z, C, seed=Z)
+    full = torch.full((Z, C), FERMAT_Q - 1, dtype=torch.int32, device=cuda_device)
     for inverse in (False, True):
         before = ntt.launches
         got = ntt(x, inverse=inverse)
         torch.cuda.synchronize()
-        assert ntt.launches == before + 1
+        assert ntt.launches == before + sum(_ntt_kernels(Z).values())
         assert torch.equal(got.long(), ntt_plain(x, inverse=inverse))
+        assert torch.equal(ntt(full, inverse=inverse).long(),
+                           ntt_plain(full, inverse=inverse))
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("inverse", [False, True])
-@pytest.mark.parametrize("Z", [1, 2, 4, 8, 16, 32, 64, 128])
+@pytest.mark.parametrize("Z", [1 << h for h in range(13)] + [8192, 16384, 65536])
 def test_cuda_ntt_kernels_by_z(cuda_device, Z, inverse):
-    """Both kernels and the boundary between them (registers up to Z = 64,
-    the shared-memory slab above), at a ragged width."""
-    x = _cuda_rand(cuda_device, Z, 1000 + 3 * Z + 1, seed=Z + 7)
-    kernel = "registers" if Z <= 64 else "slab"
+    """Every kernel and the boundaries between them (registers up to Z = 64,
+    the two-pass slab up to 4096, the leading stages and the slab above), at
+    a ragged width."""
+    C = 1000 + 3 * Z + 1 if Z <= 4096 else 97
+    x = _cuda_rand(cuda_device, Z, C, seed=Z + 7)
     before = dict(ntt.launches_by_kernel)
     got = ntt(x, inverse=inverse)
     torch.cuda.synchronize()
-    assert ntt.launches_by_kernel[kernel] == before[kernel] + 1
+    launched = {k: n - before[k] for k, n in ntt.launches_by_kernel.items() if n != before[k]}
+    assert launched == _ntt_kernels(Z)
     assert torch.equal(got.long(), ntt_plain(x, inverse=inverse))
 
 
@@ -109,6 +124,8 @@ def test_cuda_wrappers_refuse_noncontiguous(cuda_device):
         gf_matmul(a.T, a)
     with pytest.raises(ValueError):
         ntt(a.T)
+    with pytest.raises(ValueError):  # 2^17 does not divide q - 1
+        ntt(torch.zeros((1 << 17, 1), dtype=torch.int32, device=cuda_device))
 
 
 @pytest.mark.cuda

@@ -173,11 +173,27 @@ def test_ntt_all_65536(inverse):
     assert np.array_equal(_np(ntt_plain(_t(x), inverse=inverse)), want)
 
 
+@pytest.mark.parametrize("Z,C", [(8192, 3), (8192, 131), (65536, 3)])
+def test_ntt_above_4096_matches_reference(Z, C):
+    """The JAX package answers every Z dividing q - 1; so does the port."""
+    x = _rng(Z + C).integers(0, FERMAT_Q, (Z, C))
+    x[:, 0] = FERMAT_Q - 1  # one all-65536 column
+    xj = jnp.asarray(x, jnp.uint32)
+    for inverse in (False, True):
+        want = _jnp(jax_ntt_xla(xj, inverse=inverse))
+        assert np.array_equal(_jnp(jax_ntt(xj, inverse=inverse, interpret=True)),
+                              want)
+        got = ntt(_t(x), inverse=inverse)
+        assert got.dtype == torch.int32
+        assert np.array_equal(_np(got), want)
+    assert np.array_equal(_np(ntt(ntt(_t(x)), inverse=True)), x)
+
+
 def test_ntt_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError):
         ntt(torch.zeros((12, 3), dtype=torch.int32))        # not 2^h
     with pytest.raises(ValueError):
-        ntt(torch.zeros((8192, 1), dtype=torch.int32))      # Z > 4096
+        ntt(torch.zeros((1 << 17, 1), dtype=torch.int32))   # 2^17 does not divide q - 1
     with pytest.raises(TypeError):
         ntt(torch.zeros((8, 3), dtype=torch.int64))
 

@@ -125,6 +125,18 @@ def test_explicit_matrix_matches_reference():
     assert np.array_equal(t.rebuild(cw), j.rebuild(cw))
 
 
+def test_dft_above_4096_codeword_matches_reference():
+    """A dft K=8192 codeword: the port's NTT takes every Z the JAX package
+    takes (Z | q - 1), not only Z <= 4096."""
+    j, t = _pair("dft", 8192, 8192, None)
+    assert t.encode_plan.local_impl == j.encode_plan.local_impl == "ntt"
+    x = np.random.default_rng(8192).integers(0, Q, (8192, 16))
+    x[:, 0] = Q - 1
+    cw = t.codeword(x)
+    assert cw.shape == (16384, 16)
+    assert np.array_equal(cw, j.codeword(x))
+
+
 DFT16_UNDECODABLE = (0, 2, 4, 6, 8, 10, 12, 14, 16, 17)
 
 
