@@ -17,7 +17,22 @@
    64 -> degraded read -> rebuild -> heal, checked bitwise; a dense encode
    (universal 256/64); a dft K=4096 and a dft K=8192 encode; each encode
    checked against the exact numpy oracle;
-5. prints the per-kernel JSON line and, last, the device JSON line.
+5. stream phase, each op with the launch counts set to 0 just before and
+   read just after: the same rs 256/64 session at W=2^18 with 64 seeded
+   erasures through the device pipeline (copy stream, pinned buffers,
+   events): `encode_stream` and `decode_stream` against the non-streamed
+   `encode`/`decode`, `rebuild_stream` against the codeword, ragged
+   `encode_batched` against per-payload `encode`, a burst of 24 queued
+   `submit` futures against direct calls; per op its wall, chunk width,
+   chunks, GB/s of int32 payload and, from the pipeline's CUDA events, how
+   long chunk k+1's host->device copy overlapped chunk k's kernels (must be
+   > 0 somewhere); then the chunk-width sweep (2^12 .. 2^18) of
+   `encode_stream` and `decode_stream`;
+6. simulator phase (host only): rs 16/4, universal, lagrange and dft specs
+   of that order on the round-network simulator against the card's
+   `local` values, measured C1/C2 against `plan.cost()`, zero drift;
+   prints `describe()` and the keys of `stats()`;
+7. prints the per-kernel JSON line and, last, the device JSON line.
 
 The kernels: `gf_matmul` (int8 tensor cores, 8-bit limbs), and behind the
 one `ntt` wrapper `ntt` (the register kernel, Z <= 64), `ntt_slab` (two
@@ -36,6 +51,8 @@ import subprocess
 import sys
 import time
 
+import numpy as np
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 Q = 65537
@@ -46,6 +63,10 @@ DFT_W = 1 << 12
 DFT_BIG_K = 8192      # the smallest transform above it (leading stages + slab)
 BIG_CHECK_COLS = 16   # columns of the dft 8192 encode held against x^T A
 CHECK_COLS = 4096     # columns held against the CPU and the numpy oracle
+SWEEP_W = [1 << h for h in range(12, 19)]   # chunk widths of the sweep
+BATCH_W = [1, 4095, 70000]                  # ragged encode_batched widths
+SIM_W = 1024          # payload width of the simulator phase
+CARD = ""             # nvidia-smi's name and power limit, set by main()
 
 # Peak rates of one H100 SXM (NVIDIA's data sheet): 3.35 TB/s of HBM3,
 # 1,979 T int8 tensor-core operations/s dense (989.5 T u8 multiply-adds), and
@@ -386,17 +407,13 @@ def read_counts() -> dict:
 def main_path_phase():
     """Returns each kernel's launches summed over the four paths, each
     path counted from 0 just before it to just after it."""
-    import numpy as np
-
     from repro_torch.api import CodedSystem, CodeSpec
 
     rng = np.random.default_rng(SEED)
     spec = CodeSpec(kind="rs", K=256, R=64)
     W, C = MAIN_W, CHECK_COLS
     x = rng.integers(0, Q, (spec.K, W), dtype=np.int64)
-    dead = np.sort(np.concatenate([rng.choice(spec.K, 40, replace=False),
-                                   spec.K + rng.choice(spec.R, 24,
-                                                       replace=False)]))
+    dead = seeded_erasures(rng, spec.K, spec.R)
 
     reset_counts()
     t0 = time.perf_counter()
@@ -459,6 +476,226 @@ def main_path_phase():
     return total
 
 
+# ---------------------------------------------------------------------------
+# stream phase
+# ---------------------------------------------------------------------------
+
+def seeded_erasures(rng, K: int, R: int):
+    """40 data and 24 parity positions of rs 256/64 (R of them in all)."""
+    return np.sort(np.concatenate([rng.choice(K, 40, replace=False),
+                                   K + rng.choice(R, R - 40, replace=False)]))
+
+
+def stream_phase():
+    """The session's streaming surface on the card; returns each kernel's
+    launches summed over the phase's ops (each counted from 0 just before
+    it to just after it)."""
+    from repro_torch.api import CodedSystem, CodeSpec, stream
+
+    rng = np.random.default_rng(SEED + 1)
+    spec = CodeSpec(kind="rs", K=256, R=64)
+    K, W = spec.K, MAIN_W
+    x = rng.integers(0, Q, (K, W), dtype=np.int64)
+    dead = seeded_erasures(rng, K, spec.R)
+    system = CodedSystem(spec, backend="local")
+    default_w = stream.plan_chunk_w(system.encode_plan)
+    total = dict.fromkeys(DESIGNS, 0)
+    overlaps = []
+
+    def cat(blocks):
+        return np.concatenate(list(blocks), axis=1)
+
+    def run(name, fn, chunk_w, per_chunk=(), quiet=False):
+        """One op, counts reset before and read after, on a CUDA-event
+        timeline; checks >= 1 launch per chunk of each kernel named."""
+        reset_counts()
+        with stream.record_timeline() as tl:
+            t0 = time.perf_counter()
+            out = fn()
+            wall = (time.perf_counter() - t0) * 1e3
+        counts = read_counts()
+        chunks = sum(len(r) for r in tl.runs)
+        overlap = tl.overlap_ms() if chunks else 0.0
+        busy = tl.busy_ms() if chunks else None
+        overlaps.append(overlap)
+        line = {"op": name, "spec": "rs K=256 R=64", "W": W,
+                "wall_ms": wall, "chunk_w": chunk_w, "chunks": chunks,
+                "gb_per_s": 4 * K * W / wall / 1e6, "overlap_ms": overlap,
+                "device_busy_ms": busy, "launches": counts, "card": CARD}
+        if not quiet:
+            print(json.dumps(line))
+        for kernel in per_chunk:
+            need(counts[kernel] >= max(1, chunks),
+                 f"{name}: {counts[kernel]} {kernel} launches for {chunks} "
+                 "chunks")
+        for k, n in counts.items():
+            total[k] += n
+        return out, line
+
+    parity, _ = run("encode (direct)", lambda: system.encode(x), None)
+    got, _ = run("encode_stream", lambda: cat(system.encode_stream(x)),
+                 default_w, ("ntt",))
+    need(np.array_equal(got, parity), "encode_stream differs from encode")
+    cw = np.concatenate([x, parity])
+    lost = cw.copy()
+    lost[dead] = 0
+    system.fail(dead.tolist())
+    rep_direct, _ = run("decode (direct)", lambda: system.decode(lost), None)
+    got, _ = run("decode_stream", lambda: cat(system.decode_stream(lost)),
+                 default_w, ("gf_matmul",))
+    need(np.array_equal(got, rep_direct), "decode_stream differs from decode")
+    need(np.array_equal(got, cw[dead]), "decode_stream differs from the codeword")
+    got, _ = run("rebuild_stream", lambda: cat(system.rebuild_stream(lost)),
+                 default_w, ("gf_matmul",))
+    need(np.array_equal(got, cw), "rebuild_stream differs from the codeword")
+    need(system.failed == (), f"rebuild_stream left {system.failed} failed")
+    bounds = np.cumsum([0] + BATCH_W + [W - sum(BATCH_W)])
+    xs = [x[:, a:b] for a, b in zip(bounds, bounds[1:])]
+    outs, _ = run("encode_batched", lambda: system.encode_batched(xs),
+                  default_w, ("ntt",))
+    for xi, yi in zip(xs, outs):
+        need(np.array_equal(yi, system.encode(xi)),
+             f"encode_batched differs at width {xi.shape[1]}")
+
+    # a burst of queued futures: 16 encodes, then 8 decodes of a failure
+    cols = 4096
+    system.fail(dead.tolist())
+    enc_in = [x[:, i * cols:(i + 1) * cols] for i in range(16)]
+    dec_in = [lost[:, i * cols:(i + 1) * cols] for i in range(8)]
+    reset_counts()
+    t0 = time.perf_counter()
+    futs = ([system.submit("encode", p) for p in enc_in]
+            + [system.submit("decode", p) for p in dec_in])
+    results = [f.result(timeout=600) for f in futs]
+    wall = (time.perf_counter() - t0) * 1e3
+    counts = read_counts()
+    qstats = system.stats()["queue"]
+    for p, r in zip(enc_in, results[:16]):
+        need(np.array_equal(r, system.encode(p)), "queued encode differs")
+    for p, r in zip(dec_in, results[16:]):
+        need(np.array_equal(r, system.decode(p)), "queued decode differs")
+    need(qstats.max_coalesced > 1, f"queue did not coalesce: {qstats}")
+    need(counts["gf_matmul"] >= 1 and counts["ntt"] >= 1, counts)
+    for k, n in counts.items():
+        total[k] += n
+    print(json.dumps({"op": "submit burst", "requests": len(futs),
+                      "payload": f"16 encodes (256, {cols}) + 8 decodes "
+                      f"(320, {cols})", "wall_ms": wall,
+                      "batches": qstats.batches,
+                      "coalesced": qstats.coalesced,
+                      "max_coalesced": qstats.max_coalesced,
+                      "launches": counts, "card": CARD}))
+    system.close()
+
+    # chunk-width sweep: three passes over the widths (up, down, up),
+    # failure set held
+    sweep = {"encode_stream": [], "decode_stream": []}
+    for pass_ in range(3):
+        for w in (SWEEP_W[::-1] if pass_ == 1 else SWEEP_W):
+            got, line = run("encode_stream", lambda w=w: cat(
+                system.encode_stream(x, chunk_w=w)), w, ("ntt",), quiet=True)
+            need(np.array_equal(got, parity), f"encode_stream chunk_w={w}")
+            sweep["encode_stream"].append(line)
+            got, line = run("decode_stream", lambda w=w: cat(
+                system.decode_stream(lost, chunk_w=w)), w, ("gf_matmul",),
+                quiet=True)
+            need(np.array_equal(got, rep_direct), f"decode_stream chunk_w={w}")
+            sweep["decode_stream"].append(line)
+    mean_wall = dict.fromkeys(SWEEP_W, 0.0)   # both ops, mean over passes
+    for op, lines in sweep.items():
+        by_w = {}
+        for ln in lines:
+            by_w.setdefault(ln["chunk_w"], []).append(ln)
+        rows = []
+        for w, ls in sorted(by_w.items()):
+            walls = [ln["wall_ms"] for ln in ls]
+            mean_wall[w] += sum(walls) / len(walls)
+            rows.append({"chunk_w": w, "budget_bytes": 4 * K * w,
+                         "chunks": ls[0]["chunks"], "wall_ms": walls,
+                         "mean_gb_per_s": 4 * K * W * len(walls)
+                         / sum(walls) / 1e6,
+                         "overlap_ms": [ln["overlap_ms"] for ln in ls],
+                         "device_busy_ms": [ln["device_busy_ms"] for ln in ls]})
+        print(json.dumps({"sweep": op, "spec": "rs K=256 R=64", "W": W,
+                          "rows": rows, "card": CARD}))
+    best = min(mean_wall, key=mean_wall.get)
+    print(json.dumps({"sweep_best": {"chunk_w": best, "budget_bytes": 4 * K * best,
+                                     "encode_plus_decode_mean_wall_ms":
+                                     mean_wall[best]},
+                      "default_chunk_w": default_w, "card": CARD}))
+    print(json.dumps({"overlap": {"max_ms": max(overlaps),
+                                  "ops_with_overlap": sum(o > 0 for o in overlaps),
+                                  "ops": len(overlaps)}, "card": CARD}))
+    need(max(overlaps) > 0, "no op overlapped a chunk's copy with kernels")
+    system.heal()
+    return total
+
+
+# ---------------------------------------------------------------------------
+# simulator phase (host only)
+# ---------------------------------------------------------------------------
+
+def simulator_phase() -> None:
+    """The round-network simulator at the README's size against the card's
+    local values; measured C1/C2 against the plans' costs, zero drift."""
+    from repro_torch.api import CodedSystem, CodeSpec
+    from repro_torch.obs.drift import LEDGER
+
+    LEDGER.reset()
+    rng = np.random.default_rng(SEED + 2)
+    for spec, dead in [(CodeSpec(kind="rs", K=16, R=4), [2, 17]),
+                       (CodeSpec(kind="universal", K=16, R=4, seed=0), [0, 19]),
+                       (CodeSpec(kind="lagrange", K=16, R=4), [5, 16]),
+                       (CodeSpec(kind="dft", K=16, R=16), [5, 9, 13])]:
+        sim = CodedSystem(spec, backend="simulator")
+        card = CodedSystem(spec, backend="local")
+        need(sim.device is None and card.device.type == "cuda",
+             (sim.device, card.device))
+        x = rng.integers(0, Q, (spec.K, SIM_W), dtype=np.int64)
+        t0 = time.perf_counter()
+        cw = sim.codeword(x)
+        enc_ms = (time.perf_counter() - t0) * 1e3
+        need(np.array_equal(cw, card.codeword(x)), f"{spec}: simulator parity")
+        plan = sim.encode_plan
+        c, last = plan.cost(), plan.last_stats
+        need((last.C1, last.C2) == (c.C1, c.C2 * SIM_W),
+             f"{spec}: encode measured {last} vs cost {c}")
+        blocks = list(sim.encode_stream(x, chunk_w=SIM_W // 4))
+        need(np.array_equal(np.concatenate(blocks, 1), cw[spec.K:]),
+             f"{spec}: simulator stream")
+        st = plan.stream_stats
+        need(st.C1 == [c.C1] * 4 and st.C2 == [c.C2 * SIM_W // 4] * 4,
+             f"{spec}: per-chunk stream stats {st}")
+        for s in (sim, card):
+            s.fail(dead)
+        lost = cw.copy()
+        lost[dead] = 0
+        t0 = time.perf_counter()
+        rep = sim.decode(lost)
+        dec_ms = (time.perf_counter() - t0) * 1e3
+        need(np.array_equal(rep, card.decode(lost)), f"{spec}: simulator decode")
+        need(np.array_equal(rep, cw[dead]), f"{spec}: decode vs codeword")
+        dplan = sim.decode_plan
+        dc, dlast = dplan.cost(), dplan.last_stats
+        need((dlast.C1, dlast.C2) == (dc.C1, dc.C2 * SIM_W),
+             f"{spec}: decode measured {dlast} vs cost {dc}")
+        print(json.dumps({
+            "simulator": f"{spec.kind} K={spec.K} R={spec.R}", "W": SIM_W,
+            "method": plan.method, "erased": dead,
+            "encode": {"C1": last.C1, "C2": last.C2, "wall_ms": enc_ms},
+            "decode": {"C1": dlast.C1, "C2": dlast.C2, "wall_ms": dec_ms},
+            "equal_to_local": True, "cost_exact": True}))
+        print(sim.describe())
+        print(json.dumps({"stats_keys": sorted(sim.stats()),
+                          "encode_keys": sorted(sim.stats()["encode"])}))
+        sim.close()
+        card.close()
+    drifted = LEDGER.drifted()
+    need(drifted == [], f"drift ledger: {drifted}")
+    print(json.dumps({"drift": "zero", "runs": sum(
+        e.runs for e in LEDGER.entries())}))
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         fail(f"no src/repro_torch beside {__file__}: run it from the repository")
@@ -469,7 +706,9 @@ def main() -> int:
     sys.path.insert(0, SRC)
     from repro_torch.kernels import build
 
-    print(card_line())
+    global CARD
+    CARD = card_line()
+    print(CARD)
     print(json.dumps({"torch": torch.__version__, "cuda": torch.version.cuda,
                       "device": torch.cuda.get_device_name(0)}))
     t0 = time.perf_counter()
@@ -497,6 +736,9 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     summary = kernel_phase(gen)
     launches = main_path_phase()
+    for name, n in stream_phase().items():
+        launches[name] += n
+    simulator_phase()
 
     sources = {"gf_matmul": ("src/repro_torch/csrc/gf_matmul.cu",
                              "src/repro/kernels/gf_matmul.py:53"),

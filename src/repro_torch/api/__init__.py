@@ -10,17 +10,22 @@ decode stacks, one planner layer, one backend registry.
 Architecture (each layer public, each composing the one below):
 
     CodedSystem (api.system)   — session: erasure state, auto-replanned
-                                 degraded reads, rebuild
+                                 degraded reads, rebuild, streamed/
+                                 batched/queued submission, stats
     Encoder / Decoder planners — plan-then-execute: host tables + schedule
     (api.planner,                selection resolved once, cached by spec
      recover.planner)            (x erasure pattern for decode) and device
     Backend registry           — `Backend` protocol + `register_backend`;
-    (api.registry,               capability checks at plan time; built-in
-     api.backends)               "local"
+    (api.registry,               capability checks at plan time; built-ins
+     api.backends)               "local" (the card) and "simulator" (the
+                                 host-only round network)
     kernels / core             — the CUDA field-matmul and NTT kernels and
-                                 their plain versions; numpy host tables
+                                 their plain versions; numpy host tables,
+                                 the schedule IR and the round simulator
 
-Every entry point runs on "cuda" unless given `device=`.
+Plans execute on either backend with bitwise-identical results;
+`plan.run_stream`/`run_batched` stream them (api.stream).  Every entry
+point runs on "cuda" unless given `device=` (moot on the simulator).
 """
 from ..topo import (
     Placement,
@@ -42,6 +47,7 @@ from .registry import (
     unregister_backend,
 )
 from .spec import CodeSpec
+from .stream import StreamStats, default_chunk_w
 from .system import CodedSystem, LinkModel
 
 __all__ = [
@@ -50,6 +56,7 @@ __all__ = [
     "Backend", "BackendCapabilityError", "RunStats",
     "register_backend", "unregister_backend", "get_backend",
     "available_backends", "resolve_device",
+    "StreamStats", "default_chunk_w",
     "Topology", "TieredLinkModel", "TieredCost",
     "Placement", "place", "tiered_encode_cost",
     "cache_clear", "cache_info",

@@ -1,25 +1,48 @@
-"""The local executor behind `EncodePlan.run`, registered on the
+"""The two built-in executors behind `EncodePlan.run`, registered on the
 `api.registry` Backend protocol.
 
-    local — single-device encode on the plan's torch device: the NTT fast
-            path (`kernels.ntt_encode`, the `ntt` CUDA kernel) or the dense
-            `kernels.ops.encode_blocks` field matmul (the `gf_matmul` CUDA
-            kernel); no communication schedule at all
+    simulator — the round-based `RoundNetwork` lockstep engine (exact numpy
+                oracle on the host; measured C1/C2 recorded thread-locally
+                on `plan.last_stats` / `plan.sim_net`).  It touches no
+                device, so a simulator plan's `device` is None.
+    local     — single-device encode on the plan's torch device: the NTT
+                fast path (`kernels.ntt_encode`, the `ntt` CUDA kernels) or
+                the dense `kernels.ops.encode_blocks` field matmul (the
+                `gf_matmul` CUDA kernel); no communication schedule at all
 
-It returns the JAX package's sink values bitwise: sink r holds x^T A[:, r]
-over F_q.  Inputs/outputs are numpy int64 (K, W) -> (R, W); on the device
-payloads are int32.  The decode half lives in `recover.backends`; the
-`Backend` object below binds both.  The simulator and mesh backends are
-not ported yet (ROADMAP queue 1).
+Both return the JAX package's sink values bitwise: sink r holds
+x^T A[:, r] over F_q.  Inputs/outputs are numpy int64 (K, W) -> (R, W); on
+the device payloads are int32.  The decode halves live in
+`recover.backends`; the `Backend` objects below bind both.  The mesh
+backend is not ported yet (ROADMAP queue 1, item 7).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from ..core import schedule
 from ..core.field import FERMAT_Q
+from ..core.simulator import RoundNetwork
 from ..obs.trace import kernel_span
 from .registry import Backend, register_backend
+
+
+def run_simulator(plan, x: np.ndarray) -> tuple[np.ndarray, RoundNetwork]:
+    """Execute the plan on the paper's p-port round network; returns
+    (sink values, the network with its measured C1/C2).
+
+    All four kinds run through one path: the plan's schedule IR
+    (`plan.schedule_ir()` — the canonical builder output, or the
+    `tier_commute`-rewritten program for `commute=True` plans) executed
+    generically by `core.schedule.execute`."""
+    spec, f = plan.spec, plan.field
+    x = f.arr(x)
+    pl = getattr(plan, "placement", None)
+    ir = plan.schedule_ir()
+    net = RoundNetwork(ir.n_procs, spec.p, placement=pl)
+    y = schedule.execute(ir, f, x, net)
+    return np.asarray(y, np.int64), net
 
 
 def run_on_device(fn, x: np.ndarray, q: int, device, name: str,
@@ -80,12 +103,45 @@ def run_local(plan, x: np.ndarray) -> np.ndarray:
                          kind=plan.spec.kind, K=plan.spec.K)
 
 
+# ---------------------------------------------------------------------------
+# the built-in Backend registrations (encode halves above, decode halves in
+# recover.backends — imported lazily to keep the api <-> recover import DAG
+# acyclic)
+# ---------------------------------------------------------------------------
+
+
+@register_backend("simulator")
+class SimulatorBackend(Backend):
+    """Exact lockstep oracle on the paper's p-port round network, on the
+    host.  Runs any prime modulus; the only backend that measures network
+    cost (exact C1/C2 recorded thread-locally on
+    `plan.last_stats`/`plan.sim_net`).  Host-only: its plans carry no
+    device."""
+
+    measures_network = True
+    host_only = True
+
+    def encode(self, plan, x):
+        y, net = run_simulator(plan, x)
+        plan._record_net(net, op="encode", width=x.shape[1])
+        return y
+
+    def decode(self, plan, v):
+        from ..recover.backends import run_simulator as run_dec
+
+        y, net = run_dec(plan, v)
+        plan._record_net(net, op="decode", width=v.shape[1])
+        return y
+
+
 @register_backend("local")
 class LocalBackend(Backend):
     """Single-device kernel path (NTT fast path / dense field matmul) on the
     plan's torch device.  No communication schedule; Fermat arithmetic
-    only."""
+    only.  `supports_stream`: `plan.run_stream` runs the device pipeline of
+    `api.stream` (copy stream, pinned buffers, events) on a CUDA plan."""
 
+    supports_stream = True
     field_note = f"the CUDA kernels are Fermat-only, q={FERMAT_Q}"
 
     def supports_field(self, q: int) -> bool:

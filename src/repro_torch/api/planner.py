@@ -18,8 +18,9 @@ tables.  Two cache levels:
 C = alpha*C1 + beta_bits*C2 (C2 already scaled by the spec's payload width
 W) over the schedules available for the spec (universal prepare-and-shoot
 always; the RS/Lagrange-specific draw-and-loose factorization when the code
-is structured).  The local backend runs no schedule, but the method is part
-of the plan and is reported like the JAX package's.
+is structured).  Every plan's round program is one `core.schedule.RoundIR`
+(`plan.schedule_ir()`): the simulator backend executes it, and the local
+backend runs no schedule but reports the same method and program.
 """
 from __future__ import annotations
 
@@ -38,11 +39,11 @@ from ..core.field import Field
 from ..topo import (Placement, TieredCost, TieredLinkModel, Topology,
                     n_procs as topo_n_procs, place, tiered_encode_cost)
 from . import backends as _backends  # noqa: F401 — registers "local"
-from .registry import PlanStats, get_backend, resolve_device
+from .registry import PlanStats, get_backend, plan_device
 from .spec import CodeSpec
 
-# default link model used for auto selection: ~10us latency, 17 bits/ns-class
-# links (the constants the demos/benchmarks report with)
+# default link model used for auto selection and describe(): ~10us latency,
+# 17 bits/ns-class links (the constants the demos/benchmarks report with)
 ALPHA_DEFAULT = 1e-5
 BETA_BITS_DEFAULT = 17e-9
 
@@ -54,13 +55,27 @@ BETA_BITS_DEFAULT = 17e-9
 @dataclass
 class HostTables:
     """Everything host-side a plan needs: the generator block, the structured
-    code (when any), and the NTT fast-path constants."""
+    code (when any), the schedule IR per method and the NTT fast-path
+    constants."""
 
     spec: CodeSpec
     field: Field
     A: np.ndarray                      # (K, R) generator block
     sgrs: StructuredGRS | None
     _ntt: Any = "unset"                # lazy NTTEncodeParams | None
+    _ir: dict = dc_field(default_factory=dict)  # method -> RoundIR
+
+    def encode_ir(self, method: str):
+        """The canonical (placement-free) `core.schedule.RoundIR` of the
+        full framework encode for `method`, built and `validate()`d once
+        per table set — every backend lowers from this one program."""
+        if method not in self._ir:
+            from ..core.schedule import build_encode_ir
+
+            self._ir[method] = build_encode_ir(
+                self.spec, method=method, A=self.A,
+                sgrs=self.sgrs).validate()
+        return self._ir[method]
 
     def ntt_params(self):
         """NTT fast-path constants for the local backend (None when the
@@ -138,26 +153,38 @@ def method_costs(spec: CodeSpec, sgrs: StructuredGRS | None) -> dict[str, Linear
     return out
 
 
-def _resolve_method(spec: CodeSpec, tables: HostTables, method: str,
+def _ir_tiered_cost(tables: HostTables, method: str,
+                    placement: Placement) -> TieredCost | None:
+    """Per-tier cost derived from the canonical schedule IR — the fallback
+    pricing for placement profiles with no closed form (e.g. the K < R
+    broadcast phase on a host boundary)."""
+    try:
+        a = tables.encode_ir(method).attribute(placement)
+    except Exception:  # noqa: BLE001 — pricing fallback must never raise
+        return None
+    W = tables.spec.W
+    return TieredCost(LinearCost(a["intra"][0], a["intra"][1] * W),
+                      LinearCost(a["inter"][0], a["inter"][1] * W))
+
+
+def _resolve_method(spec: CodeSpec, tables: HostTables | None, method: str,
                     placement: Placement | None = None, link=None
                     ) -> tuple[str, dict[str, LinearCost]]:
-    sgrs = tables.sgrs
+    sgrs = tables.sgrs if tables is not None else None
     costs = method_costs(spec, sgrs)
     if method == "auto":
         # argmin of the linear cost (W already folded into each C2);
         # specific schedule wins exact ties.  Under a placement and a
-        # tiered link model, each method is priced by its per-tier split.
+        # tiered link model, each method is priced by its per-tier split
+        # (IR-derived when the closed form doesn't apply, flat as a last
+        # resort) — topology can flip the choice when one schedule keeps
+        # more traffic intra.
         if placement is not None and isinstance(link, TieredLinkModel):
             def _score(m: str) -> float:
                 tc = tiered_encode_cost(spec, m, placement, sgrs=sgrs)
-                if tc is None:
-                    # the JAX package prices this profile from its schedule
-                    # IR (`core/schedule.py`), which is not ported yet
-                    raise NotImplementedError(
-                        f"no closed-form per-tier cost for method {m!r} under "
-                        "this placement; pricing it needs the schedule IR "
-                        "(ROADMAP queue 1, item 2)")
-                return link.us(tc)
+                if tc is None and tables is not None:
+                    tc = _ir_tiered_cost(tables, m, placement)
+                return link.us(tc if tc is not None else costs[m])
         elif link is not None:
             def _score(m: str) -> float:
                 return link.us(costs[m])
@@ -177,11 +204,6 @@ def _resolve_method(spec: CodeSpec, tables: HostTables, method: str,
 # EncodePlan
 # ---------------------------------------------------------------------------
 
-def _not_ported(what: str, queue: str):
-    raise NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP {queue})")
-
-
 @dataclass
 class EncodePlan(PlanStats):
     """An executable encode: spec + resolved method + backend + host tables
@@ -189,22 +211,31 @@ class EncodePlan(PlanStats):
 
     Obtained from `Encoder.plan`; cached, so hold on to it (or re-call
     `Encoder.plan` — both hit the cache) and call `.run` per payload.
+
+    Plans are shared across callers AND threads; per-run measurements
+    (`last_stats`, `sim_net`, `stream_stats` — see `registry.PlanStats`)
+    are thread-local, so every thread reads the stats of its own last run.
     """
 
-    op = "encode"  # backend dispatch discriminator (not a field)
+    op = "encode"  # stream/backend dispatch discriminator (not a field)
 
     spec: CodeSpec
     backend: str
     method: str
     tables: HostTables
     costs: dict[str, LinearCost]
-    device: Any = None                 # torch.device the kernels run on
-    # hierarchical-topology context (see repro_torch.topo): placement and
-    # link drive the tiered pricing of auto selection and `tiered_cost`
+    device: Any = None                 # torch.device (None: host-only)
+    # hierarchical-topology context (see repro_torch.topo): placement drives
+    # the simulator's per-tier accounting, link the tiered pricing of
+    # describe()/auto selection
     placement: Placement | None = None
     topology: Topology | None = None
     link: Any = None
+    # run the tier_commute rewrite pass over the schedule IR (requires a
+    # placement; the simulator backend executes the rewritten program)
+    commute: bool = False
     _local_fn: Callable | None = None
+    _ir: Any = None                    # lazily-resolved plan-level RoundIR
     # thread-local per-run stats storage (PlanStats reads/writes this)
     _tls: Any = dc_field(default_factory=threading.local, repr=False)
 
@@ -233,16 +264,56 @@ class EncodePlan(PlanStats):
         return y[:, 0] if squeeze else y
 
     def run_stream(self, payload, *, chunk_w: int | None = None):
-        _not_ported("streamed encode (run_stream)", "queue 1, item 5")
+        """Streamed encode: generator of (R, w) sink blocks.
 
-    def run_batched(self, xs, *, chunk_w: int | None = None):
-        _not_ported("batched encode (run_batched)", "queue 1, item 5")
+        `payload` is a (K, W) array (split into chunks of width `chunk_w`,
+        default `stream.plan_chunk_w(plan)`) or an iterable of (K, w_i)
+        chunks (streamed as given, re-split only above chunk_w).
+        Concatenating the yielded blocks is bitwise-equal to `run` on the
+        concatenated payload.  On the local backend the chunks run through
+        the device pipeline on `plan.device`; on the simulator backend,
+        `plan.stream_stats` carries exact per-chunk C1/C2.
+        """
+        from . import stream
+
+        return stream.run_stream(self, payload, chunk_w=chunk_w)
+
+    def run_batched(self, xs, *, chunk_w: int | None = None) -> list[np.ndarray]:
+        """Encode a batch of payloads (each (K,) or (K, W_i)) in one
+        coalesced streamed execution; returns per-payload sink values."""
+        from . import stream
+
+        return stream.run_batched(self, xs, chunk_w=chunk_w)
+
+    # -- streaming adapter (see api/stream.py) ------------------------------
+    def _stream_sim_chunk(self, x: np.ndarray):
+        from .backends import run_simulator
+
+        return run_simulator(self, x)  # (y, RoundNetwork) pair
+
+    def _stream_device_fn(self):
+        """The per-chunk device function of the pipeline: (K, w) int32 ->
+        (R, w) int32 on `plan.device`."""
+        from .backends import local_encode_callable
+
+        return local_encode_callable(self)
 
     def schedule_ir(self):
-        _not_ported("the schedule IR (core/schedule.py)", "queue 1, item 2")
+        """The plan's `core.schedule.RoundIR`: the canonical per-method
+        program from the host tables, with `tier_commute(placement)`
+        applied when the plan was built with `commute=True`.  Cached for
+        the plan's lifetime (tables cache the canonical IR per method)."""
+        if self._ir is None:
+            ir = self.tables.encode_ir(self.method)
+            if self.commute and self.placement is not None:
+                ir = ir.tier_commute(self.placement)
+            self._ir = ir
+        return self._ir
 
     def mesh_callable(self):
-        _not_ported("the mesh backend", "queue 1, item 7")
+        raise NotImplementedError(
+            "the mesh backend is not ported to repro_torch yet (ROADMAP "
+            "queue 1, item 7)")
 
     @property
     def local_impl(self) -> str:
@@ -251,17 +322,64 @@ class EncodePlan(PlanStats):
         return "ntt" if self.tables.ntt_params() is not None else "dense"
 
     def cost(self) -> LinearCost:
-        """(C1, C2) of the chosen schedule per the Table-I cost model."""
+        """(C1, C2) of the chosen schedule per the Table-I cost model
+        (the canonical schedule — a commuted plan's exact counts come from
+        `schedule_ir().cost()`, see `obs.drift`)."""
         return self.costs[self.method]
 
     def tiered_cost(self) -> TieredCost | None:
         """Exact per-tier (intra, inter) split of `cost()` under the plan's
         placement; None without a placement or when the placement has no
-        closed form."""
+        closed form (the simulator's measured `sim_net.by_tier()` still
+        applies).  A `commute=True` plan's split comes from its rewritten
+        schedule IR — that is the program its runs execute."""
         if self.placement is None:
             return None
+        if self.commute:
+            a = self.schedule_ir().attribute(self.placement)
+            W = self.spec.W
+            return TieredCost(
+                LinearCost(a["intra"][0], a["intra"][1] * W),
+                LinearCost(a["inter"][0], a["inter"][1] * W))
         return tiered_encode_cost(self.spec, self.method, self.placement,
                                   sgrs=self.sgrs)
+
+    def describe(self) -> str:
+        s = self.spec
+        c = self.cost()
+        model_us = c.total(ALPHA_DEFAULT, BETA_BITS_DEFAULT) * 1e6
+        lines = [
+            f"EncodePlan[{s.kind}] K={s.K} R={s.R} p={s.p} W={s.W} q={s.q}",
+            f"  backend : {self.backend}",
+            f"  method  : {self.method} "
+            f"(available: {', '.join(sorted(self.costs))})",
+            f"  cost    : C1={c.C1} rounds, C2={c.C2} elems/port "
+            f"(model C ~ {model_us:.1f} us)",
+            f"  tables  : cached, key={s.table_key()}",
+            f"  schedule: {self.schedule_ir().summary(self.placement)}",
+        ]
+        if self.topology is not None:
+            t = self.topology
+            pol = self.placement.policy if self.placement else "none"
+            lines.append(f"  topo    : {t.hosts} hosts x "
+                         f"{t.devices_per_host} devices, placement={pol}")
+            tc = self.tiered_cost()
+            if tc is not None:
+                us = (self.link.us(tc)
+                      if isinstance(self.link, TieredLinkModel) else None)
+                lines.append(
+                    f"  tiers   : intra C1={tc.intra.C1} C2={tc.intra.C2} | "
+                    f"inter C1={tc.inter.C1} C2={tc.inter.C2}"
+                    + (f" (model C ~ {us:.1f} us)" if us is not None else ""))
+        if self.backend == "local":
+            impl = ("O(K log K) NTT fast path (CUDA ntt kernels)"
+                    if self.local_impl == "ntt"
+                    else "CUDA gf_matmul field-matmul kernel")
+            plain = ("" if self.device.type == "cuda"
+                     else " (the kernels' plain versions)")
+            lines.append(f"  note    : local backend runs the {impl} on "
+                         f"{self.device}{plain}; no schedule is executed")
+        return "\n".join(lines)
 
 
 # ---------------------------------------------------------------------------
@@ -278,13 +396,14 @@ class Encoder:
     def plan(cls, spec: CodeSpec, backend: str = "local",
              method: str = "auto", A: np.ndarray | None = None, *,
              topology: Topology | Placement | None = None,
-             link=None, device=None) -> EncodePlan:
+             link=None, commute: bool = False, device=None) -> EncodePlan:
         """Plan an encode: resolve the algorithm, build-or-reuse host tables,
         and return the cached executable plan.
 
-        backend : a registered backend name — "local" built in, plus
-                  anything added via `api.register_backend`
-                  (capability-checked here, at plan time)
+        backend : a registered backend name — "local" | "simulator"
+                  built in, plus anything added via
+                  `api.register_backend` (capability-checked here, at
+                  plan time)
         method  : "auto" (cost-model argmin) | "universal" | "rs" | "dft"
         A       : explicit (K, R) generator block — required for
                   kind="universal" specs without a seed; allowed for
@@ -294,12 +413,19 @@ class Encoder:
                   `Placement`; with a `TieredLinkModel` link, "auto" prices
                   each method by its per-tier split.
         link    : `LinkModel` or `repro_torch.topo.TieredLinkModel`.
+        commute : apply the `RoundIR.tier_commute` rewrite pass under the
+                  resolved placement (required): the commuting reduce
+                  rounds are re-synthesized host-aware so inter-host
+                  rounds strictly shrink (or the schedule is unchanged).
+                  Simulator runs execute the rewritten program.
         device  : the torch device the plan runs on; None means "cuda",
                   and a missing card then raises RuntimeError (pass
-                  device="cpu" for the kernels' plain versions).
+                  device="cpu" for the kernels' plain versions).  A
+                  host-only backend (the simulator) touches no device:
+                  there `device` is moot and the plan's is None.
         """
         get_backend(backend).validate(spec, op="encode")
-        device = resolve_device(device)
+        device = plan_device(backend, device)
         placement = None
         topo = None
         if topology is not None:
@@ -319,9 +445,13 @@ class Encoder:
                 raise TypeError(
                     f"topology must be a Topology or Placement, "
                     f"got {type(topology).__name__}")
+        if commute and placement is None:
+            raise ValueError(
+                "commute=True requires a placement — pass topology= (a "
+                "Topology with enough slots, or an explicit Placement)")
         digest = _digest(A)
         plan_key = (spec, backend, method, digest, placement, topo, link,
-                    device)
+                    commute, device)
         hit = _PLANS.get(plan_key)
         if hit is not None:
             _STATS["plan_hits"] += 1
@@ -332,9 +462,17 @@ class Encoder:
                                           placement, link)
         plan = EncodePlan(spec, backend, resolved, tables, costs,
                           device=device, placement=placement, topology=topo,
-                          link=link)
+                          link=link, commute=commute)
         _PLANS[plan_key] = plan
         return plan
+
+    @classmethod
+    def auto_method(cls, spec: CodeSpec) -> str:
+        """The method `method="auto"` resolves to for this spec."""
+        tables = None
+        if spec.structured():
+            tables = _host_tables(spec, None, None)
+        return _resolve_method(spec, tables, "auto")[0]
 
     @classmethod
     def cache_info(cls) -> dict[str, int]:

@@ -1,15 +1,18 @@
 """Backend protocol + registry: the single dispatch surface behind BOTH
 planners (`Encoder`/`EncodePlan` and `recover.Decoder`/`DecodePlan`).
 
-A *backend* is an executor for planned encodes/decodes.  The port has one
-built-in so far (registered in `api.backends`), bitwise-identical to the
-JAX package's backend of the same name:
+A *backend* is an executor for planned encodes/decodes.  The port's two
+built-ins (registered in `api.backends`) are interchangeable and
+bitwise-identical to the JAX package's backends of the same names:
 
     local     — single-device CUDA kernels (NTT fast path / dense field
-                matmul; no communication schedule)
+                matmul; no communication schedule) on the plan's device
+    simulator — the paper's p-port round network (exact numpy oracle on
+                the host; measured C1/C2 on `plan.last_stats` /
+                `plan.sim_net`)
 
-The simulator and mesh backends are still to be ported.  Third-party /
-experimental executors plug in without touching core:
+The mesh backend is still to be ported.  Third-party / experimental
+executors plug in without touching core:
 
     from repro_torch.api import Backend, register_backend
 
@@ -23,7 +26,8 @@ experimental executors plug in without touching core:
     plan = Encoder.plan(spec, backend="mybackend")
 
 Capabilities are *declared* up front — `supports_stream`,
-`measures_network`, `supports_field(q)`, `device_requirement(spec)` — and
+`measures_network`, `host_only`, `supports_field(q)`,
+`device_requirement(spec)` — and
 checked once at plan time (`Backend.validate`), so an unsupported
 (spec, backend) pair fails with a `BackendCapabilityError` naming the
 mismatch instead of a deep kernel assert mid-run.
@@ -79,11 +83,13 @@ class Backend:
     Declared capabilities (override as needed):
 
       supports_stream   — the backend provides a device pipeline for
-                          `plan.run_stream` (built-ins: local/mesh).
+                          `plan.run_stream` (built-in: local).
                           Backends without it still stream correctly via
                           per-chunk `encode`/`decode` calls.
       measures_network  — runs yield exact (C1, C2) network stats,
                           recorded thread-locally on `plan.last_stats`.
+      host_only         — runs touch no device (the simulator): plans on
+                          it resolve no torch device (`plan_device`).
       supports_field(q) — which moduli the executor handles (the CUDA
                           kernels are Fermat-only).
       device_requirement(spec) — minimum CUDA device count to execute
@@ -93,6 +99,7 @@ class Backend:
     name: str = "?"
     supports_stream: bool = False
     measures_network: bool = False
+    host_only: bool = False
     # optional one-line reason shown in the unsupported-field error
     # (set by backends whose supports_field is restrictive)
     field_note: str | None = None
@@ -151,6 +158,15 @@ def resolve_device(device=None):
         if dev.index is None:  # one cache key per physical card
             dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def plan_device(backend: str, device=None):
+    """The device of a plan on `backend`: None for a host-only backend (the
+    simulator touches no device, so `device` is moot there and never
+    resolved), `resolve_device(device)` otherwise."""
+    if get_backend(backend).host_only:
+        return None
+    return resolve_device(device)
 
 
 _REGISTRY: dict[str, Backend] = {}

@@ -33,7 +33,7 @@ and q is the Fermat prime.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -77,6 +77,18 @@ class NTTEncodeParams:
     phi_inv: np.ndarray | None = None   # (M, Z) int64
     psi: np.ndarray | None = None       # (M, Z) int64
     twist: np.ndarray | None = None     # (M, Z) int64  e_m[i] = (c_b/c_m)^i
+    # device -> (phi_inv, psi, twist) as (Z, M, 1) tensors, made once: a
+    # pageable copy per call would synchronise the stream it runs on
+    _dev: dict = field(default_factory=dict, compare=False, repr=False)
+
+    def on(self, device) -> tuple:
+        """(phi_inv, psi, twist) as (Z, M, 1) int64 tensors on `device`."""
+        hit = self._dev.get(device)
+        if hit is None:
+            hit = self._dev[device] = tuple(
+                torch.as_tensor(a.T, device=device)[:, :, None]
+                for a in (self.phi_inv, self.psi, self.twist))
+        return hit
 
     @staticmethod
     def build(spec, sgrs) -> "NTTEncodeParams | None":
@@ -134,14 +146,10 @@ def ntt_encode(x: torch.Tensor, params: NTTEncodeParams) -> torch.Tensor:
         return ntt(x)
     Z, M, W = params.Z, params.M, x.shape[1]
 
-    def const(a):  # (M, Z) host constants -> (Z, M, 1) on x's device
-        return torch.as_tensor(a.T, device=x.device)[:, :, None]
-
     def i32(t):
         return t.to(torch.int32).contiguous()
 
-    phi_inv, psi, twist = const(params.phi_inv), const(params.psi), \
-        const(params.twist)
+    phi_inv, psi, twist = params.on(x.device)
     if params.case_kge:
         # blocks side by side in one batched transform: (Z, M*W) columns
         xb = fermat_mul(phi_inv, x.reshape(M, Z, W).transpose(0, 1))

@@ -1,12 +1,16 @@
-"""The decode half of the local backend (the `Backend` object binding it to
-the registry lives in `api.backends`).
+"""The decode halves of the two built-in backends (the `Backend` objects
+binding these to the registry live in `api.backends`).
 
-    local — single-device `kernels.ops.decode_blocks` (the `gf_matmul` CUDA
-            kernel) on the plan's torch device
+    simulator — all-to-all decode among the K kept survivors on the
+                round network, with the erased processors fail()-ed
+                (exact numpy oracle on the host; measured C1/C2 recorded
+                thread-locally on `plan.last_stats` / `plan.sim_net`)
+    local     — single-device `kernels.ops.decode_blocks` (the `gf_matmul`
+                CUDA kernel) on the plan's torch device
 
-It returns the JAX package's repaired symbols bitwise: row j holds
-v^T D[:, j] over F_q for erased position `plan.erased[j]`.  The simulator
-and mesh halves are not ported yet (ROADMAP queue 1).
+Both return the JAX package's repaired symbols bitwise: row j holds
+v^T D[:, j] over F_q for erased position `plan.erased[j]`.  The mesh half
+is not ported yet (ROADMAP queue 1, item 7).
 """
 from __future__ import annotations
 
@@ -14,6 +18,20 @@ import numpy as np
 import torch
 
 from ..api.backends import run_on_device
+from ..core import schedule
+from ..core.simulator import RoundNetwork
+
+
+def run_simulator(plan, v: np.ndarray) -> tuple[np.ndarray, RoundNetwork]:
+    """Decode on the paper's p-port round network: the erased processors
+    are failed (any schedule touching them would raise); returns the
+    repaired symbols and the network with its measured C1/C2.  Executes
+    the plan's decode `RoundIR` (`plan.schedule_ir()`) generically."""
+    spec, f = plan.spec, plan.field
+    net = RoundNetwork(spec.N, spec.p)
+    net.fail(plan.erased)
+    y = schedule.execute(plan.schedule_ir(), f, f.arr(v), net)
+    return np.asarray(y, np.int64), net
 
 
 def local_decode_callable(plan):

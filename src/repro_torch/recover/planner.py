@@ -15,8 +15,18 @@ first survivor positions whose generator columns are linearly independent
 full message space raises `UndecodableError`).
 
 Like the encoder, everything host-side happens once at plan time and is
-cached: the survivor submatrix inverse S^-1 and the repair matrix
-D = S^-1 G[:, E] (numpy, exact), and per plan their copies on the device.
+cached: the survivor submatrix inverse S^-1, the repair matrix
+D = S^-1 G[:, E] (numpy, exact) and the decode schedule IR, and per plan
+their copies on the device.  Two backends return bitwise-identical
+symbols:
+
+    simulator — all-to-all decode among the survivors on a RoundNetwork
+                with the erased processors `fail()`-ed (measured C1/C2 on
+                `plan.sim_net`; host only)
+    local     — single-device `decode_blocks` (the `gf_matmul` kernel)
+
+`repair_with_faults` restarts a simulator repair against the enlarged
+erasure set when processors die mid-schedule.
 """
 from __future__ import annotations
 
@@ -30,12 +40,13 @@ import torch
 
 from ..api.backends import run_on_device
 from ..api.planner import ALPHA_DEFAULT, BETA_BITS_DEFAULT, _digest, _host_tables
-from ..api.registry import PlanStats, get_backend, resolve_device
+from ..api.registry import PlanStats, get_backend, plan_device
 from ..api.spec import CodeSpec
 from ..core.cost_model import LinearCost
 from ..core.field import FERMAT_Q, Field
 from ..core.matrices import gauss_inverse
-from .engine import decode_cost
+from ..core.simulator import PartialRunError, RoundNetwork
+from .engine import batch_block, decode_batches, decode_cost
 
 
 class UndecodableError(ValueError):
@@ -82,6 +93,27 @@ class DecodeTables:
     kept: tuple[int, ...]        # the K chosen survivor positions
     D: np.ndarray                # (K, |E|) repair matrix  S^-1 G[:, E]
     Dd: np.ndarray               # (K, K)  data matrix     S^-1
+    _ir: Any = None              # lazy core.schedule.RoundIR
+
+    def ir(self):
+        """The decode `core.schedule.RoundIR` among the kept survivors,
+        built and `validate()`d (against the erasure set) once per table
+        set — the simulator executes exactly this program."""
+        if self._ir is None:
+            from ..core.schedule import build_decode_ir
+
+            self._ir = build_decode_ir(
+                self.spec, self.D, list(self.kept)).validate(
+                    failed=set(self.erased))
+        return self._ir
+
+    def batches(self) -> list[tuple[int, int]]:
+        return decode_batches(self.spec.K, len(self.erased))
+
+    def batch_block(self, b: int) -> np.ndarray:
+        """Zero-padded (K, E') column block of D for batch b (the same
+        blocks the simulator schedule runs — see `engine.batch_block`)."""
+        return batch_block(self.D, b)
 
 
 # Unlike the encoder's caches (keyed by a handful of specs), decode keys
@@ -139,14 +171,19 @@ def _decode_tables(spec: CodeSpec, erased: tuple[int, ...],
 class DecodePlan(PlanStats):
     """An executable erasure decode: spec + erasure pattern + backend +
     cached host tables + the device it runs on.  Obtained from
-    `Decoder.plan`; cached — hold on to it and call `.run` per payload."""
+    `Decoder.plan`; cached — hold on to it and call `.run` per payload.
 
-    op = "decode"  # backend dispatch discriminator (not a field)
+    Per-run measurements (`last_stats`, `sim_net`, `stream_stats`) are
+    thread-local (see `api.registry.PlanStats`): plans are shared across
+    threads and each thread reads only its own last run.
+    """
+
+    op = "decode"  # stream/backend dispatch discriminator (not a field)
 
     spec: CodeSpec
     backend: str
     tables: DecodeTables
-    device: Any = None           # torch.device the kernels run on
+    device: Any = None           # torch.device (None: host-only backend)
     _local_fn: Any = None
     _Dd: Any = None              # lazy device copy of tables.Dd (int32)
     # thread-local per-run stats storage (PlanStats reads/writes this)
@@ -166,6 +203,12 @@ class DecodePlan(PlanStats):
         """The K survivor positions whose symbols `run`/`data` consume,
         in input-row order."""
         return self.tables.kept
+
+    @property
+    def survivors(self) -> tuple[int, ...]:
+        """All non-erased codeword positions."""
+        dead = set(self.tables.erased)
+        return tuple(i for i in range(self.spec.N) if i not in dead)
 
     @property
     def D(self) -> np.ndarray:
@@ -191,14 +234,52 @@ class DecodePlan(PlanStats):
             y = get_backend(self.backend).decode(self, v)
         return y[:, 0] if squeeze else y
 
+    def run_stream(self, payload, *, chunk_w: int | None = None):
+        """Streamed repair: generator of (|E|, w) blocks of recomputed
+        symbols; same chunking/pipelining/bitwise contract as
+        `EncodePlan.run_stream` (see api/stream.py).  `payload` carries the
+        K survivor symbols of `plan.kept` along its leading dim."""
+        from ..api import stream
+
+        if not self.erased:
+            def _zeros():
+                cw = chunk_w or stream.plan_chunk_w(self)
+                for c in stream.iter_chunks(payload, self.spec.K, cw):
+                    yield np.zeros((0, c.shape[1]), np.int64)
+            return _zeros()
+        return stream.run_stream(self, payload, chunk_w=chunk_w)
+
+    def run_batched(self, vs, *, chunk_w: int | None = None) -> list[np.ndarray]:
+        """Repair a batch of survivor payloads (each (K,) or (K, W_i)) in
+        one coalesced streamed execution."""
+        from ..api import stream
+
+        if not self.erased:
+            return [np.zeros((0,) + np.asarray(v).shape[1:], np.int64)
+                    for v in vs]
+        return stream.run_batched(self, vs, chunk_w=chunk_w)
+
+    # -- streaming adapter (see api/stream.py) ------------------------------
+    def _stream_sim_chunk(self, v: np.ndarray):
+        from .backends import run_simulator
+
+        return run_simulator(self, v)  # (y, RoundNetwork) pair
+
+    def _stream_device_fn(self):
+        """The per-chunk device function of the pipeline: (K, w) int32 ->
+        (|E|, w) int32 on `plan.device`."""
+        from .backends import local_decode_callable
+
+        return local_decode_callable(self)
+
     def data(self, v) -> np.ndarray:
         """Decode the full original data x (K, W) from the survivors (the
         degraded-read path).  Runs the `gf_matmul` kernel with S^-1 on the
-        plan's device for the Fermat field, the exact host matmul
-        otherwise — bitwise identical."""
+        plan's device for the Fermat field, the exact host matmul otherwise
+        and on a host-only (simulator) plan — bitwise identical."""
         v, squeeze = self._check(v)
         f = self.field
-        if f.q == FERMAT_Q:
+        if f.q == FERMAT_Q and self.device is not None:
             from ..kernels.ops import decode_blocks
 
             if self._Dd is None:
@@ -219,6 +300,134 @@ class DecodePlan(PlanStats):
         c = decode_cost(self.spec.K, len(self.erased), self.spec.p)
         return LinearCost(c.C1, c.C2 * self.spec.W)
 
+    def schedule_ir(self):
+        """The decode `core.schedule.RoundIR` this plan's simulator path
+        executes (shared, via the tables, across backends/widths)."""
+        return self.tables.ir()
+
+    def describe(self) -> str:
+        s = self.spec
+        c = self.cost()
+        model_us = c.total(ALPHA_DEFAULT, BETA_BITS_DEFAULT) * 1e6
+        batches = self.tables.batches()
+        sched = (self.schedule_ir().summary() if self.erased
+                 else "empty (nothing erased)")
+        return "\n".join([
+            f"DecodePlan[{s.kind}] K={s.K} R={s.R} p={s.p} W={s.W} q={s.q}",
+            f"  backend : {self.backend}",
+            f"  erased  : {list(self.erased)} ({len(self.erased)} of <= {s.R})",
+            f"  kept    : {list(self.kept)}",
+            f"  batches : {batches} (width, padded to divisor of K)",
+            f"  cost    : C1={c.C1} rounds, C2={c.C2} elems/port "
+            f"(model C ~ {model_us:.1f} us)",
+            f"  schedule: {sched}",
+        ])
+
+
+# ---------------------------------------------------------------------------
+# live-failure repair: restart the decode against the enlarged erasure set
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class RepairAttempt:
+    """One (re)planned decode attempt inside `repair_with_faults`: the
+    pattern it targeted, the exact rounds/traffic it consumed on the shared
+    network (for an aborted attempt, the completed prefix only), and — when
+    aborted — the processors whose mid-run death enlarged the pattern."""
+
+    erased: tuple[int, ...]
+    C1: int
+    C2: int
+    completed: bool
+    killed: tuple[int, ...] = ()
+
+
+@dataclass
+class RepairReport:
+    """Result of `repair_with_faults`: the fully healed codeword, the plan
+    of the final (largest) erasure pattern, the network whose cumulative
+    C1/C2 account every aborted prefix plus the successful retry exactly
+    (`net.C1 == sum(a.C1 for a in attempts)`, and the last attempt's C1
+    equals the closed-form `decode_cost`), and the per-attempt trace."""
+
+    codeword: np.ndarray
+    plan: "DecodePlan"
+    net: RoundNetwork
+    attempts: list[RepairAttempt]
+
+    @property
+    def erased(self) -> tuple[int, ...]:
+        """The final erasure pattern the repair recomputed."""
+        return self.plan.erased
+
+    @property
+    def restarts(self) -> int:
+        return sum(1 for a in self.attempts if not a.completed)
+
+
+def repair_with_faults(spec: CodeSpec, cw, erased=(), *,
+                       net: RoundNetwork | None = None,
+                       A: np.ndarray | None = None) -> RepairReport:
+    """Repair `erased` on the round network under live failure injection.
+
+    Runs the decode-as-encode schedule among the survivors of `erased` on
+    `net` (a fresh `RoundNetwork(spec.N, spec.p)` by default — pass one
+    with `fail_at` kills registered, e.g. via `core.FaultInjector`, to
+    inject chaos).  When a kill lands mid-schedule, the resulting
+    `PartialRunError` is caught, the erasure set enlarged by the newly
+    dead processors, and the repair *restarted* against the superset
+    pattern on the SAME network — so `net.C1`/`net.C2` account the aborted
+    prefix plus the retry exactly.  A kill that hits an idle survivor
+    (one the schedule never touches) still loses that symbol: a follow-up
+    pass recomputes it before returning.
+
+    `cw` is the full (N, W) (or (N,)) codeword; rows at erased positions
+    are ignored.  Returns a `RepairReport` whose `codeword` is the fully
+    healed (N, W) — bitwise-equal to the original for any total failure
+    count <= R (beyond R, `Decoder.plan` refuses with the usual
+    `ValueError`; information-losing dft patterns raise
+    `UndecodableError`).  Runs on the simulator: host only, no device.
+    """
+    cw = np.asarray(cw)
+    squeeze = cw.ndim == 1
+    v2 = cw[:, None] if squeeze else cw
+    if v2.shape[0] != spec.N:
+        raise ValueError(
+            f"cw must carry the full N={spec.N} codeword rows, got "
+            f"{cw.shape}")
+    net = net or RoundNetwork(spec.N, spec.p)
+    net.fail({int(e) for e in erased})
+    attempts: list[RepairAttempt] = []
+    while True:
+        # a kill due exactly at this round boundary enlarges the pattern
+        # BEFORE planning (it would abort the very first round otherwise)
+        net.apply_pending_kills()
+        pattern = tuple(sorted(net.failed))
+        plan = Decoder.plan(spec, erased=pattern, backend="simulator", A=A)
+        c1_0, c2_0 = net.C1, net.C2
+        f = plan.field
+        v = f.arr(v2[list(plan.kept)])
+        try:
+            from ..core import schedule
+
+            y = schedule.execute(plan.schedule_ir(), f, v, net)
+        except PartialRunError as exc:
+            attempts.append(RepairAttempt(
+                pattern, net.C1 - c1_0, net.C2 - c2_0, completed=False,
+                killed=tuple(sorted(set(exc.failed) - set(pattern)))))
+            continue
+        attempts.append(RepairAttempt(
+            pattern, net.C1 - c1_0, net.C2 - c2_0, completed=True))
+        if net.failed - set(pattern):
+            # an idle survivor died mid-run without aborting the schedule;
+            # its symbol is lost all the same — repair the superset too
+            continue
+        healed = (v2 % spec.q).astype(np.int64)
+        if pattern:
+            healed[list(pattern)] = np.asarray(y, np.int64)
+        return RepairReport(healed[:, 0] if squeeze else healed, plan, net,
+                            attempts)
+
 
 # ---------------------------------------------------------------------------
 # Decoder
@@ -238,15 +447,16 @@ class Decoder:
         erased : iterable of codeword positions in [0, K + R); data symbol
                  k is position k, parity symbol r is position K + r.
                  At most R positions may be erased.
-        backend: a registered backend name ("local" built in; see
-                 `api.register_backend`), capability-checked here
+        backend: a registered backend name ("local" | "simulator" built
+                 in; see `api.register_backend`), capability-checked here
         A      : explicit generator block for kind="universal"/"lagrange"
                  specs — must match the block the data was encoded with.
         device : the torch device the plan runs on; None means "cuda",
-                 and a missing card then raises RuntimeError.
+                 and a missing card then raises RuntimeError.  Moot (the
+                 plan's is None) on the host-only simulator backend.
         """
         get_backend(backend).validate(spec, op="decode")
-        device = resolve_device(device)
+        device = plan_device(backend, device)
         erased = tuple(sorted({int(e) for e in erased}))
         if erased and not (0 <= erased[0] and erased[-1] < spec.N):
             raise ValueError(

@@ -162,3 +162,74 @@ def test_cuda_quickstart_matches_cpu(cuda_device, kind, K, R):
     assert np.array_equal(gpu.read(lost), x)
     assert np.array_equal(gpu.rebuild(lost), cw)
     assert gpu.failed == ()
+
+
+# ---------------- the stream pipeline, the queue --------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,K,R", [("rs", 16, 4), ("universal", 16, 4)])
+@pytest.mark.parametrize("chunk_w", [1, 7, 128, 1000])
+def test_cuda_stream_pipeline_matches_cpu(cuda_device, kind, K, R, chunk_w):
+    """The pipelined encode_stream/decode_stream (copy stream, pinned
+    buffers, events) equals the CPU's, ragged last chunk included."""
+    from repro_torch.api import CodedSystem, CodeSpec
+
+    spec = CodeSpec(kind=kind, K=K, R=R, seed=0 if kind == "universal" else None)
+    gpu = CodedSystem(spec, backend="local", chunk_w=chunk_w)
+    cpu = CodedSystem(spec, backend="local", device="cpu")
+    W = 300 if chunk_w > 1 else 40
+    x = _rng(K + chunk_w).integers(0, FERMAT_Q, (K, W))
+    cw = cpu.codeword(x)
+    blocks = list(gpu.encode_stream(x))
+    assert len(blocks) == -(-W // chunk_w)
+    assert np.array_equal(np.concatenate(blocks, axis=1), cw[K:])
+    dead = [1, K + R - 1]
+    for s in (gpu, cpu):
+        s.fail(dead)
+    lost = cw.copy()
+    lost[dead] = 0
+    got = np.concatenate(list(gpu.decode_stream(lost)), axis=1)
+    assert np.array_equal(got, cpu.decode(lost))
+    healed = np.concatenate(list(gpu.rebuild_stream(lost)), axis=1)
+    assert np.array_equal(healed, cw) and gpu.failed == ()
+
+
+@pytest.mark.cuda
+def test_cuda_queue_worker_matches_direct_calls(cuda_device):
+    from repro_torch.api import CodedSystem, CodeSpec
+
+    system = CodedSystem(CodeSpec(kind="rs", K=16, R=4), backend="local")
+    assert system._ensure_queue().device.type == "cuda"
+    xs = [_rng(i).integers(0, FERMAT_Q, (16, 50 + 31 * i)) for i in range(6)]
+    futs = [system.submit("encode", x) for x in xs]
+    for f, x in zip(futs, xs):
+        assert np.array_equal(f.result(timeout=120), system.encode(x))
+    cw = system.codeword(xs[0])
+    system.fail([3, 18])
+    assert np.array_equal(system.submit("decode", cw).result(timeout=120),
+                          system.decode(cw))
+    assert np.array_equal(system.submit("rebuild", cw).result(timeout=120), cw)
+    system.close()
+
+
+@pytest.mark.cuda
+def test_cuda_stream_raises_when_the_kernel_library_cannot_load(cuda_device,
+                                                               monkeypatch):
+    """A CUDA plan's stream never falls back to the CPU loop."""
+    import importlib
+
+    from repro_torch.api import CodeSpec, Encoder
+
+    # the module (the package exports the wrapper function under its name)
+    gf_mod = importlib.import_module("repro_torch.kernels.gf_matmul")
+
+    def unloadable():
+        raise OSError("libgf_matmul.so: cannot open shared object file")
+
+    plan = Encoder.plan(CodeSpec(kind="universal", K=16, R=4, seed=0),
+                        backend="local")
+    assert plan.local_impl == "dense"
+    monkeypatch.setattr(gf_mod, "_launcher", unloadable)
+    x = _rng(5).integers(0, FERMAT_Q, (16, 64))
+    with pytest.raises(OSError, match="cannot open"):
+        list(plan.run_stream(x, chunk_w=16))

@@ -183,7 +183,7 @@ def test_plans_are_cached_per_device():
 
 def test_port_imports_neither_jax_nor_reference():
     code = ("import sys, repro_torch.api, repro_torch.recover, "
-            "repro_torch.kernels\n"
+            "repro_torch.kernels, repro_torch.launch, repro_torch.core\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "assert not bad, bad\n")
@@ -204,6 +204,10 @@ def test_port_sources_import_no_jax_or_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20
+    scanned = {p.relative_to(ROOT).as_posix() for p in files}
+    assert {"src/repro_torch/launch/coding_queue.py",
+            "src/repro_torch/api/stream.py",
+            "src/repro_torch/core/schedule.py"} <= scanned
     for path in files:
         roots = set(_imported_roots(path))
         assert not roots & {"jax", "jaxlib", "repro"}, (path, roots)
