@@ -32,7 +32,33 @@
    of that order on the round-network simulator against the card's
    `local` values, measured C1/C2 against `plan.cost()`, zero drift;
    prints `describe()` and the keys of `stats()`;
-7. prints the per-kernel JSON line and, last, the device JSON line.
+7. solve phase: `core.parity.reconstruct` at rs K=256 R=64, W=2^18 from
+   the 256 survivors of 64 seeded erasures, equal to the data; the
+   256 x 256 Gauss-Jordan inverse on the card beside the host's
+   `gauss_inverse`, equal;
+8. checkpoint phase (examples/coded_checkpoint_restart.py's deployment:
+   N=16, R=4, kills {2, 5, 11, 14}): a seeded bf16 state with the shapes
+   of Qwen3-1.7B's first 4 decoder layers (of 28) on the card through
+   `CodedCheckpointer`: save, background save + wait, healthy and degraded
+   restores, in-place corruption, two scrubs, a last restore; every
+   restore equal to the state byte for byte, every file's sha256 equal to
+   the one recorded at save; per op its wall, GB/s of state bytes, chunk
+   width and count, launches;
+9. coding phase: `CodedMatmul` K=16 R=4 under one seeded dead set of each
+   size 0-4, `LagrangeComputer` K=16 at degree 1 (N=20) and 2 (N=36) on
+   seeded worker subsets, `GradientCoder(16, 3).combine` on float32 card
+   trees of one decoder layer under all 256 one-per-group straggler
+   patterns; all bitwise;
+10. service phase: `CodedService` on the card at rs K=256 R=64, two
+   tenants' client threads (32 encodes of (256, 4096) each) and a degraded
+   read, then random `fail`s racing 36 queued encode/decode/rebuild
+   submissions of two tenants; every future bitwise; coalescing ratio,
+   failovers and p50/p99 latencies;
+11. prints the per-kernel JSON line (launches summed over every path) and,
+   last, the device JSON line.
+
+Each path of phases 4-10 is driven with the launch counts set to 0 just
+before it and read just after.
 
 The kernels: `gf_matmul` (int8 tensor cores, 8-bit limbs), and behind the
 one `ntt` wrapper `ntt` (the register kernel, Z <= 64), `ntt_slab` (two
@@ -66,6 +92,13 @@ CHECK_COLS = 4096     # columns held against the CPU and the numpy oracle
 SWEEP_W = [1 << h for h in range(12, 19)]   # chunk widths of the sweep
 BATCH_W = [1, 4095, 70000]                  # ragged encode_batched widths
 SIM_W = 1024          # payload width of the simulator phase
+SOLVE_W = MAIN_W      # payload width of the solve phase's reconstruct
+CKPT_LAYERS = 4       # decoder layers of Qwen3-1.7B in the checkpoint state
+CKPT_KILLS = (2, 5, 11, 14)  # examples/coded_checkpoint_restart.py's kills
+CM_ROWS = 64          # rows per shard of the coded matmul (X: 16*64 x 2048)
+LCC_W = 4096          # payload width of the Lagrange coded computation
+SVC_W = 4096          # payload width of the service phase's requests
+SVC_REQUESTS = 32     # encodes per client thread in the service phase
 CARD = ""             # nvidia-smi's name and power limit, set by main()
 
 # Peak rates of one H100 SXM (NVIDIA's data sheet): 3.35 TB/s of HBM3,
@@ -696,6 +729,459 @@ def simulator_phase() -> None:
         e.runs for e in LEDGER.entries())}))
 
 
+# ---------------------------------------------------------------------------
+# solve phase
+# ---------------------------------------------------------------------------
+
+def counted(name: str, fn, total: dict):
+    """Run `fn` with the launch counts set to 0 just before and read just
+    after; add them to `total`.  Returns (result, wall ms, counts)."""
+    import torch
+
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    counts = read_counts()
+    for k, n in counts.items():
+        total[k] += n
+    return out, wall, counts
+
+
+def solve_phase():
+    """`reconstruct` (the Gauss-Jordan inverse on the card, then
+    `gf_matmul`) at the main path's size; returns each kernel's launches."""
+    import torch
+
+    from repro_torch.api import CodedSystem, CodeSpec
+    from repro_torch.core.field import FERMAT
+    from repro_torch.core.matrices import gauss_inverse
+    from repro_torch.core.parity import reconstruct
+    from repro_torch.kernels import gf_gauss_inverse
+
+    total = dict.fromkeys(DESIGNS, 0)
+    rng = np.random.default_rng(SEED + 3)
+    spec = CodeSpec(kind="rs", K=256, R=64)
+    x = rng.integers(0, Q, (spec.K, SOLVE_W), dtype=np.int64)
+    dead = seeded_erasures(rng, spec.K, spec.R)
+    system = CodedSystem(spec, backend="local")
+    sgrs = system.encode_plan.sgrs
+    cw = system.codeword(x)
+    system.close()
+    kept = np.array([i for i in range(spec.N) if i not in set(dead.tolist())])
+    need(kept.size == spec.K, kept.size)
+    vals = cw[kept]
+    got, wall, counts = counted(
+        "reconstruct", lambda: reconstruct(FERMAT, sgrs, kept, vals), total)
+    need(np.array_equal(got, x), "reconstruct differs from the data")
+    need(counts["gf_matmul"] >= 1, f"reconstruct launched no gf_matmul: {counts}")
+    G = np.concatenate([np.eye(spec.K, dtype=np.int64), sgrs.grs.A_direct()], 1)
+    sub_t = G[:, kept].T % Q
+    gf_gauss_inverse(np.eye(2, dtype=np.int64))  # its inverse table, once
+    inv, inv_ms, _ = counted("inverse", lambda: gf_gauss_inverse(sub_t), total)
+    t0 = time.perf_counter()
+    host = gauss_inverse(FERMAT, sub_t)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    need(inv.device.type == "cuda", inv.device)
+    need(np.array_equal(inv.cpu().numpy(), host),
+         "card inverse differs from the host's gauss_inverse")
+    print(json.dumps({
+        "solve": f"reconstruct rs K=256 R=64 W={SOLVE_W}", "erased": len(dead),
+        "wall_ms": wall, "launches": counts, "exact": True,
+        "gauss_inverse_256": {"card_ms": inv_ms, "host_ms": host_ms,
+                              "equal": True},
+        "card": CARD}))
+    del inv
+    torch.cuda.empty_cache()
+    return total
+
+
+# ---------------------------------------------------------------------------
+# checkpoint phase
+# ---------------------------------------------------------------------------
+
+def qwen3_layers_state(n_layers: int, gen):
+    """A seeded OrderedDict state with the shapes of the first `n_layers`
+    decoder layers of Qwen3-1.7B (src/repro/configs/qwen3_1_7b.py: d_model
+    2048, 16 heads x 128, 8 KV heads, d_ff 6144, q/k norms), bf16 on the
+    card, in the Hugging Face layout, plus an int64 step leaf."""
+    from collections import OrderedDict
+
+    import torch
+
+    D, H, KV, hd, F = 2048, 16, 8, 128, 6144
+    shapes = [("input_layernorm.weight", (D,)),
+              ("self_attn.q_proj.weight", (H * hd, D)),
+              ("self_attn.k_proj.weight", (KV * hd, D)),
+              ("self_attn.v_proj.weight", (KV * hd, D)),
+              ("self_attn.o_proj.weight", (D, H * hd)),
+              ("self_attn.q_norm.weight", (hd,)),
+              ("self_attn.k_norm.weight", (hd,)),
+              ("post_attention_layernorm.weight", (D,)),
+              ("mlp.gate_proj.weight", (F, D)),
+              ("mlp.up_proj.weight", (F, D)),
+              ("mlp.down_proj.weight", (D, F))]
+    state = OrderedDict()
+    for i in range(n_layers):
+        for name, shape in shapes:
+            state[f"model.layers.{i}.{name}"] = (torch.randn(
+                shape, generator=gen, device="cuda") * 0.02).to(torch.bfloat16)
+    state["step"] = torch.tensor(1000, dtype=torch.int64)
+    return state
+
+
+def leaf_bytes(tree) -> list[bytes]:
+    """Each leaf's raw bytes in order (bf16 by its bits), on the host."""
+    import torch
+
+    out = []
+    for v in tree.values():
+        t = v.detach().cpu()
+        out.append((t.view(torch.int16) if t.dtype == torch.bfloat16
+                    else t).numpy().tobytes())
+    return out
+
+
+def checkpoint_phase(gen):
+    """The coded-checkpoint deployment on the card; returns each kernel's
+    launches summed over its operations."""
+    import hashlib
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from repro_torch.api import stream
+    from repro_torch.ckpt import CodedCheckpointer
+    from repro_torch.obs import trace
+
+    total = dict.fromkeys(DESIGNS, 0)
+    state = qwen3_layers_state(CKPT_LAYERS, gen)
+    want = leaf_bytes(state)
+    nbytes = sum(len(b) for b in want)
+    params = sum(v.numel() for k, v in state.items() if k != "step")
+    root = tempfile.mkdtemp(prefix="coded_ckpt_")
+    try:
+        ck = CodedCheckpointer(root, n_shards=16, n_parity=4)
+        need(ck._system.device.type == "cuda", ck._system.device)
+        need(ck._system.encode_plan.local_impl == "ntt",
+             ck._system.encode_plan.local_impl)
+        chunk_w = stream.plan_chunk_w(ck._system.encode_plan)
+        L = -(-(-(-nbytes // 2)) // 16)
+        chunks = -(-L // chunk_w)
+        example = type(state)((k, v.cpu()) for k, v in state.items())
+        print(json.dumps({
+            "checkpoint": "Qwen3-1.7B decoder layers, bf16, N=16 R=4",
+            "layers": CKPT_LAYERS, "reduced": f"{CKPT_LAYERS} of 28 layers "
+            "(the chip run's time)", "params": params, "state_bytes": nbytes,
+            "shard_symbols": L, "chunk_w": chunk_w, "chunks": chunks,
+            "card": CARD}))
+
+        def op(name, fn, kernel=None):
+            """One checkpoint op; the card's busy time from the pipeline's
+            CUDA events (recorded on this thread only: not for the
+            background save's worker), and the host time of each of the
+            checkpointer's stages and the stream's per-chunk stages, summed
+            from their spans on the installed tracer."""
+            with stream.record_timeline() as tl, trace.installed() as tr:
+                out, wall, counts = counted(name, fn, total)
+            busy = tl.busy_ms() if tl.runs else None
+            stages: dict = {}
+            for e in tr.events():
+                key = f"{e.get('cat', '')}.{e['name']}"
+                stages[key] = stages.get(key, 0.0) + e["dur"] / 1e3
+            print(json.dumps({"op": name, "wall_ms": wall,
+                              "gb_per_s": nbytes / wall / 1e6,
+                              "chunk_w": chunk_w, "chunks": chunks,
+                              "device_busy_ms": busy,
+                              "device_idle_share": (None if busy is None
+                                                    else 1 - busy / wall),
+                              "stages_ms": stages,
+                              "launches": counts, "card": CARD}))
+            if kernel is not None:
+                need(counts[kernel] >= chunks,
+                     f"{name}: {counts[kernel]} {kernel} launches for "
+                     f"{chunks} chunks")
+            return out
+
+        def restored(name, step, **kw):
+            got = op(name, lambda: ck.restore(step, example, **kw),
+                     "gf_matmul" if kw else None)
+            need(leaf_bytes(got) == want, f"{name}: restore differs")
+
+        op("save step 1", lambda: ck.save(1, state), "ntt")
+
+        def background():
+            ck.save(2, state, background=True)
+            ck.wait()
+        op("save step 2 (background) + wait", background, "ntt")
+        restored("restore step 2", 2)
+        restored("restore step 2, shards 2 5 11 14 failed", 2,
+                 failed_shards=set(CKPT_KILLS))
+        d = Path(root) / "step_000001"
+        (d / "shard_002.npy").unlink()
+        for name in ("shard_005.npy", "parity_001.npy"):
+            arr = np.load(d / name)
+            arr[7] = (arr[7] + 1) % Q
+            np.save(d / name, arr)
+        rep = op("scrub step 1 (1 missing, 2 corrupt)", lambda: ck.scrub(1),
+                 "gf_matmul")
+        print(json.dumps({"scrub_report": rep}))
+        need(rep["missing"] == [2] and rep["corrupt"] == [5, 17]
+             and rep["rebuilt"] == [2, 5, 17] and rep["verified"], rep)
+        rep = op("scrub step 1 again", lambda: ck.scrub(1))
+        need(rep["rebuilt"] == [], rep)
+        restored("restore step 1 after scrub", 1)
+        for step in (1, 2):
+            sd = Path(root) / f"step_{step:06d}"
+            sums = json.loads((sd / "meta.json").read_text())["sha256"]
+            need(len(sums) == 20, len(sums))
+            for fname, digest in sums.items():
+                got = hashlib.sha256(np.load(sd / f"{fname}.npy").tobytes())
+                need(got.hexdigest() == digest, f"step {step} {fname}: sha256")
+        print(json.dumps({"checkpoint_checks": "every restore equal to the "
+                          "state byte for byte; 40 files' sha256 equal to "
+                          "save's", "ok": True}))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return total
+
+
+# ---------------------------------------------------------------------------
+# coding phase
+# ---------------------------------------------------------------------------
+
+def coding_phase(gen):
+    """Coded matmul, Lagrange coded computing and gradient coding on the
+    card; returns each kernel's launches."""
+    import itertools
+
+    import torch
+
+    from repro_torch.coding import CodedMatmul, GradientCoder, LagrangeComputer
+    from repro_torch.core.field import FERMAT
+
+    total = dict.fromkeys(DESIGNS, 0)
+    rng = np.random.default_rng(SEED + 4)
+    K, R, d, out = 16, 4, 2048, 256
+    X = FERMAT.rand((K * CM_ROWS, d), rng)
+    Wm = FERMAT.rand((d, out), rng)
+    truth = FERMAT.matmul(X, Wm)
+    with CodedMatmul(K, R) as cm:
+        need(cm.system.encode_plan.local_impl == "ntt",
+             cm.system.encode_plan.local_impl)
+        shards, enc_ms, counts = counted("encode", lambda: cm.encode(X), total)
+        need(counts["ntt"] >= 1, f"CodedMatmul.encode: {counts}")
+        results = cm.worker_compute(shards, Wm)  # the workers (host numpy)
+        lines = [{"encode_ms": enc_ms, "launches": counts}]
+        for n_dead in range(R + 1):
+            dead = np.sort(rng.choice(K + R, n_dead, replace=False))
+            got, ms, counts = counted("decode",
+                                      lambda: cm.decode(results, dead), total)
+            need(np.array_equal(got, truth), f"CodedMatmul dead={dead}")
+            need(n_dead == 0 or counts["gf_matmul"] >= 1, counts)
+            need(not cm.system.failed, cm.system.failed)
+            lines.append({"dead": dead.tolist(), "decode_ms": ms,
+                          "launches": counts})
+    print(json.dumps({"coded_matmul": f"K={K} R={R} X ({K * CM_ROWS}, {d}) "
+                      f"W ({d}, {out})", "runs": lines, "exact": True,
+                      "card": CARD}))
+
+    lcc_lines = []
+    for deg, N in ((1, 20), (2, 36)):
+        lcc = LagrangeComputer.build(FERMAT, K, N)
+        x = FERMAT.rand((K, LCC_W), rng)
+        coded, enc_ms, enc_counts = counted("encode", lambda: lcc.encode(x),
+                                            total)
+        need(enc_counts["gf_matmul"] + enc_counts["ntt"] >= 1, enc_counts)
+
+        def poly(v):
+            y = v
+            for _ in range(deg - 1):
+                y = FERMAT.mul(y, v)
+            return FERMAT.add(y, 7)
+
+        results, truth_l = poly(coded), poly(x)
+        T = lcc.recovery_threshold(deg)
+        for trial in range(3):
+            ids = rng.permutation(N)[: int(rng.integers(T, N + 1))]
+            got, ms, counts = counted(
+                "decode", lambda: lcc.decode(deg, ids, results[ids]), total)
+            need(np.array_equal(got, truth_l), f"LCC deg={deg} ids={ids}")
+            need(counts["gf_matmul"] >= 1, f"LCC decode: {counts}")
+            lcc_lines.append({"deg": deg, "N": N, "workers": int(ids.size),
+                              "threshold": T, "encode_ms": enc_ms,
+                              "decode_ms": ms, "launches": counts})
+    print(json.dumps({"lagrange": f"K={K} W={LCC_W}", "runs": lcc_lines,
+                      "exact": True, "card": CARD}))
+
+    # gradient coding: 16 workers in 4 groups of 4, every member of a group
+    # reporting the group's sum; one straggler per group in every pattern
+    gc = GradientCoder(16, 3)
+    shapes = [(2048,), (2048, 2048), (1024, 2048), (1024, 2048), (2048, 2048),
+              (128,), (128,), (2048,), (6144, 2048), (6144, 2048), (2048, 6144)]
+    group_sums = [[torch.randn(s, generator=gen, device="cuda")
+                   for s in shapes] for _ in range(gc.n_groups)]
+    reports = [[t.clone() for t in group_sums[w // 4]] for w in range(16)]
+    expect = [(group_sums[0][i] + group_sums[1][i] + group_sums[2][i]
+               + group_sums[3][i]) / 16 for i in range(len(shapes))]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    patterns = 0
+    for stragglers in itertools.product(range(4), repeat=4):
+        alive = np.ones(16, bool)
+        alive[[4 * g + m for g, m in enumerate(stragglers)]] = False
+        got = gc.combine(reports, alive)
+        need(all(torch.equal(a, b) for a, b in zip(got, expect)),
+             f"combine differs under stragglers {stragglers}")
+        patterns += 1
+    torch.cuda.synchronize()
+    comb_ms = (time.perf_counter() - t0) * 1e3
+    print(json.dumps({"gradient_coding": "n=16 s=3, float32 trees of one "
+                      "Qwen3-1.7B decoder layer on the card",
+                      "patterns": patterns, "bitwise": True,
+                      "wall_ms": comb_ms, "ms_per_combine": comb_ms / patterns,
+                      "card": CARD}))
+    del reports, group_sums, expect
+    torch.cuda.empty_cache()
+    return total
+
+
+# ---------------------------------------------------------------------------
+# service phase
+# ---------------------------------------------------------------------------
+
+def service_phase():
+    """`CodedService` on the card at rs K=256 R=64; returns each kernel's
+    launches summed over its two legs."""
+    import threading
+
+    from repro_torch.api import CodedSystem, CodeSpec
+    from repro_torch.core.field import FERMAT
+    from repro_torch.launch import CodedService, TenantQuota
+    from repro_torch.launch.tenancy import percentile
+
+    total = dict.fromkeys(DESIGNS, 0)
+    spec = CodeSpec(kind="rs", K=256, R=64)
+    ref = CodedSystem(spec, backend="local")
+    cpu = CodedSystem(spec, backend="local", device="cpu")
+
+    def report(leg, svc, wall, counts, n):
+        st = svc.stats()
+        s = st["service"]
+        lat = svc.latencies_us()
+        print(json.dumps({
+            "service": leg, "spec": "rs K=256 R=64", "ops": n,
+            "wall_ms": wall, "requests": s["requests"],
+            "batches": s["batches"], "coalescing_ratio": s["coalescing_ratio"],
+            "failovers": s["failovers"],
+            "p50_us": percentile(lat, 0.50), "p99_us": percentile(lat, 0.99),
+            "tenants": {k: {"p50_us": v["p50_us"], "p99_us": v["p99_us"],
+                            "completed": v["completed"], "failed": v["failed"]}
+                        for k, v in st["tenants"].items()},
+            "launches": counts, "card": CARD}))
+
+    # -- leg 1: two tenants' clients, then a degraded read -----------------
+    # every payload and reference codeword is made before the counted
+    # window, so its launches and wall are the service's alone
+    payloads = {t: [FERMAT.rand((spec.K, SVC_W), r)
+                    for _ in range(SVC_REQUESTS)]
+                for t, r in (("acme", np.random.default_rng(50)),
+                             ("zeta", np.random.default_rng(51)))}
+    x_read = FERMAT.rand((spec.K, SVC_W), np.random.default_rng(99))
+    cw = ref.codeword(x_read)
+
+    def leg1():
+        with CodedService(backend="local") as svc:
+            need(svc.device.type == "cuda", svc.device)
+            svc.set_quota("acme", TenantQuota(32, weight=2.0))
+            futs, lock = [], threading.Lock()
+
+            def client(tenant):
+                for x in payloads[tenant]:
+                    f = svc.submit(tenant, spec, "encode", x,
+                                   tag=f"{tenant}/v0")
+                    with lock:
+                        futs.append((x, f))
+
+            threads = [threading.Thread(target=client, args=(t,))
+                       for t in ("acme", "zeta")]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+                need(not t.is_alive(), "service client thread hung")
+            got = [(x, f.result(timeout=600)) for x, f in futs]
+            svc.session("zeta", spec).fail(range(spec.R))
+            lost = svc.submit("zeta", spec, "decode", cw).result(timeout=600)
+            return svc, got, lost
+
+    (svc, got, lost), wall, counts = counted("service", leg1, total)
+    for i, (x, y) in enumerate(got):
+        need(np.array_equal(y, ref.encode(x)), "service encode differs")
+        if i < 2:
+            need(np.array_equal(y, cpu.encode(x)), "service encode vs CPU")
+    need(np.array_equal(lost, cw[: spec.R]), "service degraded read differs")
+    need(counts["ntt"] >= 1, f"service encodes launched no ntt: {counts}")
+    need(counts["gf_matmul"] >= 1,
+         f"service degraded read launched no gf_matmul: {counts}")
+    report("two tenants, 2 x 32 encodes + 1 degraded read", svc, wall, counts,
+           len(got) + 1)
+
+    # -- leg 2: chaos under service load ------------------------------------
+    rng = np.random.default_rng(SEED + 5)
+    data = []
+    for t in range(2):
+        xt = FERMAT.rand((spec.K, SVC_W), rng)
+        data.append((f"tenant{t}", xt, ref.codeword(xt)))
+
+    def leg2():
+        with CodedService(backend="local") as svc:
+            tens = [(name, svc.session(name, spec), xt, cwt)
+                    for name, xt, cwt in data]
+            sfuts = []
+            for _ in range(36):
+                name, sess, xt, cwt = tens[int(rng.integers(2))]
+                roll = rng.random()
+                if roll < 0.3 and len(sess.failed) < spec.R:
+                    alive = [i for i in range(spec.N) if i not in sess.failed]
+                    sess.fail(int(rng.choice(alive)))
+                elif roll < 0.6:
+                    sfuts.append(("encode", (), cwt,
+                                  svc.submit(name, spec, "encode", xt)))
+                elif roll < 0.85:
+                    sfuts.append(("decode", sess.failed, cwt,
+                                  svc.submit(name, spec, "decode", cwt)))
+                else:
+                    sfuts.append(("rebuild", sess.failed, cwt,
+                                  svc.submit(name, spec, "rebuild", cwt)))
+            res = [(op, pinned, cwt, f.result(timeout=600))
+                   for op, pinned, cwt, f in sfuts]
+            return svc, res
+
+    (svc, res), wall, counts = counted("chaos", leg2, total)
+    for op, pinned, cwt, y in res:
+        want = (cwt[spec.K:] if op == "encode"
+                else cwt[list(pinned)] if op == "decode" else cwt)
+        need(np.array_equal(y, want), f"chaos {op} differs")
+    st = svc.stats()
+    done = sum(t["completed"] for t in st["tenants"].values())
+    need(done == len(res) == st["service"]["requests"],
+         f"silent drop: {done} completed of {len(res)}")
+    # the service's own launches: ntt for its encodes, gf_matmul for its
+    # decodes and rebuilds around failed positions
+    need(not any(op == "encode" for op, *_ in res) or counts["ntt"] >= 1,
+         f"chaos encodes launched no ntt: {counts}")
+    need(not any(op != "encode" and pinned for op, pinned, *_ in res)
+         or counts["gf_matmul"] >= 1,
+         f"chaos repairs launched no gf_matmul: {counts}")
+    report(f"chaos: random fails racing {len(res)} queued ops of 2 tenants",
+           svc, wall, counts, len(res))
+    ref.close()
+    return total
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         fail(f"no src/repro_torch beside {__file__}: run it from the repository")
@@ -739,6 +1225,10 @@ def main() -> int:
     for name, n in stream_phase().items():
         launches[name] += n
     simulator_phase()
+    for phase in (solve_phase, lambda: checkpoint_phase(gen),
+                  lambda: coding_phase(gen), service_phase):
+        for name, n in phase().items():
+            launches[name] += n
 
     sources = {"gf_matmul": ("src/repro_torch/csrc/gf_matmul.cu",
                              "src/repro/kernels/gf_matmul.py:53"),

@@ -5,12 +5,16 @@
 
 Each wrapper launches its kernel for a CUDA tensor and runs its plain
 version (`ref`) for a CPU tensor; `build` compiles the sources on first use.
+`gf_solve` (exact Gauss-Jordan inverse in plain torch on the device, then
+`gf_matmul`) is the decode solve.
 """
 from . import ops
 from .gf_matmul import gf_matmul
+from .gf_solve import gf_gauss_inverse, gf_solve
 from .ntt import ntt, ntt_twiddles
 from .ntt_encode import NTTEncodeParams, ntt_encode
 from .ref import gf_matmul_plain, ntt_plain
 
-__all__ = ["gf_matmul", "gf_matmul_plain", "ntt", "ntt_plain", "ntt_twiddles",
-           "NTTEncodeParams", "ntt_encode", "ops"]
+__all__ = ["gf_matmul", "gf_matmul_plain", "gf_gauss_inverse", "gf_solve",
+           "ntt", "ntt_plain", "ntt_twiddles", "NTTEncodeParams", "ntt_encode",
+           "ops"]

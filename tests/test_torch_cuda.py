@@ -4,6 +4,8 @@ field arithmetic: tolerance 0).  Needs an NVIDIA card: every test is marked
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 """
+import warnings
+
 import numpy as np
 import pytest
 import torch
@@ -233,3 +235,95 @@ def test_cuda_stream_raises_when_the_kernel_library_cannot_load(cuda_device,
     x = _rng(5).integers(0, FERMAT_Q, (16, 64))
     with pytest.raises(OSError, match="cannot open"):
         list(plan.run_stream(x, chunk_w=16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 16, 256])
+def test_cuda_gf_solve_matches_cpu(cuda_device, n):
+    from repro_torch.kernels import gf_gauss_inverse, gf_matmul, gf_solve
+
+    a = _rng(n).integers(0, FERMAT_Q, (n, n))
+    b = _rng(n + 1).integers(0, FERMAT_Q, (n, 1000))
+    inv = gf_gauss_inverse(a, device=cuda_device)
+    assert inv.device.type == "cuda"
+    assert torch.equal(inv.cpu(), gf_gauss_inverse(a, device="cpu"))
+    # the host waits on the device once, for the singular check at the end
+    a_dev = torch.as_tensor(a, device=cuda_device)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            inv_dev = gf_gauss_inverse(a_dev, device=cuda_device)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    waits = [w for w in caught
+             if "called a synchronizing" in str(w.message)]
+    assert len(waits) == 1, [str(w.message) for w in waits]
+    assert torch.equal(inv_dev, inv)
+    before = gf_matmul.launches
+    x = gf_solve(a, b, device=cuda_device)
+    assert gf_matmul.launches == before + 1
+    assert torch.equal(x.cpu(), gf_solve(a, b, device="cpu"))
+    with pytest.raises(ValueError, match="singular"):
+        gf_gauss_inverse(np.zeros((4, 4), np.int64), device=cuda_device)
+
+
+@pytest.mark.cuda
+def test_cuda_checkpoint_restores_on_cpu_byte_for_byte(cuda_device, tmp_path):
+    from collections import OrderedDict
+
+    from repro_torch.ckpt import CodedCheckpointer
+    from repro_torch.kernels import gf_matmul, ntt
+
+    g = torch.Generator().manual_seed(0)
+    state = OrderedDict([
+        ("w", torch.randn(300, 257, generator=g).to(torch.bfloat16).to(cuda_device)),
+        ("b", torch.randn(1001, generator=g).to(cuda_device)),
+        ("step", torch.tensor(12))])
+    card = CodedCheckpointer(str(tmp_path / "card"), 16, 4)
+    assert card._system.device.type == "cuda"
+    n0 = ntt.launches
+    card.save(1, state, background=True)
+    card.wait()
+    assert ntt.launches > n0
+    host = CodedCheckpointer(str(tmp_path / "host"), 16, 4, device="cpu")
+    host.save(1, state)
+    for p in sorted((tmp_path / "card" / "step_000001").glob("*.npy")):
+        assert p.read_bytes() == (tmp_path / "host" / "step_000001" / p.name).read_bytes()
+    example = OrderedDict((k, v.cpu()) for k, v in state.items())
+    m0 = gf_matmul.launches
+    got = card.restore(1, example, failed_shards={2, 5, 11, 14})
+    assert gf_matmul.launches > m0
+    cpu_got = CodedCheckpointer(str(tmp_path / "card"), 16, 4,
+                                device="cpu").restore(1, example,
+                                                      failed_shards={0, 1})
+    for k, v in example.items():
+        for t in (got[k], cpu_got[k]):
+            assert t.dtype == v.dtype and t.device.type == "cpu"
+            assert torch.equal(t.view(torch.int16) if v.dtype == torch.bfloat16
+                               else t, v.view(torch.int16)
+                               if v.dtype == torch.bfloat16 else v), k
+
+
+@pytest.mark.cuda
+def test_cuda_service_runs_its_queue_on_the_card(cuda_device):
+    from repro_torch.api import CodedSystem, CodeSpec
+    from repro_torch.launch import CodedService
+
+    spec = CodeSpec(kind="rs", K=16, R=4)
+    ref = CodedSystem(spec, backend="local", device="cpu")
+    xs = [_rng(20 + i).integers(0, FERMAT_Q, (16, 64)) for i in range(8)]
+    with CodedService() as svc:  # device=None: the card
+        sess = svc.session("t0", spec)
+        assert svc.device.type == "cuda"
+        assert sess.device == svc.device == svc._queue.device
+        futs = [svc.submit(f"t{i % 2}", spec, "encode", x)
+                for i, x in enumerate(xs)]
+        for f, x in zip(futs, xs):
+            assert np.array_equal(f.result(timeout=120), ref.encode(x))
+        cw = ref.codeword(xs[0])
+        sess.fail([1, 17])
+        assert np.array_equal(svc.submit("t0", spec, "decode", cw)
+                              .result(timeout=120), cw[[1, 17]])
+        st = svc.stats()["service"]
+        assert st["requests"] == 9 and st["inflight_ops"] == 0
