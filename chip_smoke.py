@@ -10,13 +10,24 @@
    instructions in the gf_matmul library's SASS;
 3. kernel phase: holds each kernel bitwise against its plain PyTorch version
    at the main path's shapes and at edge shapes, and times kernel, plain
-   version and a one-call PyTorch yardstick with CUDA events;
+   version and a one-call PyTorch yardstick with CUDA events; the same for
+   `gf_matmul_batched` (gf_matmul's batched entry) at the mesh combine's
+   shape, 256 x (9 x 8).(8 x 2^18), against `torch.bmm` in float64;
 4. main-path phase, four paths, each with the launch counts set to 0 just
    before and read just after: `CodedSystem(CodeSpec(kind="rs", K=256,
    R=64))` on the card with a seeded (256, 2^18) payload: codeword -> fail
    64 -> degraded read -> rebuild -> heal, checked bitwise; a dense encode
    (universal 256/64); a dft K=4096 and a dft K=8192 encode; each encode
    checked against the exact numpy oracle;
+4b. mesh phase (G = 1: all processors in one tensor on the card), each op
+   with the launch counts set to 0 just before and read just after, and
+   no plain version allowed to run: the same rs 256/64 chain on
+   `backend="mesh"` (codeword -> fail 64 -> read -> rebuild -> heal), each
+   output equal to the local backend's; a forced method="rs" encode (DFT
+   butterflies), a dft K=4096 encode at W=2^12 and a commute=True rs
+   256/64 encode on Topology(5, 64) (the generic IR lowering); per op the
+   wall split by spans, the kernel spans by name, the launches, the peak
+   device memory and the legs run;
 5. stream phase, each op with the launch counts set to 0 just before and
    read just after: the same rs 256/64 session at W=2^18 with 64 seeded
    erasures through the device pipeline (copy stream, pinned buffers,
@@ -60,7 +71,8 @@
 Each path of phases 4-10 is driven with the launch counts set to 0 just
 before it and read just after.
 
-The kernels: `gf_matmul` (int8 tensor cores, 8-bit limbs), and behind the
+The kernels: `gf_matmul` (int8 tensor cores, 8-bit limbs) and its batched
+entry `gf_matmul_batched` (the mesh's per-processor combine), and behind the
 one `ntt` wrapper `ntt` (the register kernel, Z <= 64), `ntt_slab` (two
 register passes through shared memory, 64 < Z <= 4096, and the 4096-row
 blocks above) and `ntt_outer` (the leading stages of 4096 < Z <= 2^16).
@@ -99,6 +111,9 @@ CM_ROWS = 64          # rows per shard of the coded matmul (X: 16*64 x 2048)
 LCC_W = 4096          # payload width of the Lagrange coded computation
 SVC_W = 4096          # payload width of the service phase's requests
 SVC_REQUESTS = 32     # encodes per client thread in the service phase
+MESH_DFT_K = 4096     # the mesh phase's dft encode (butterfly rounds)
+MESH_COMMUTE_TOPO = (5, 64)  # 320 slots for rs 256/64; 5 hosts do not
+                             # divide K: a flat mesh, and the rewrite fires
 CARD = ""             # nvidia-smi's name and power limit, set by main()
 
 # Peak rates of one H100 SXM (NVIDIA's data sheet): 3.35 TB/s of HBM3,
@@ -112,7 +127,8 @@ INT8_MAC_PER_S = 1979e12 / 2
 INT32_MAD_PER_S = 67e12 / 4
 DESIGNS = {"gf_matmul": "imma-u8-limbs", "ntt": "ntt-registers",
            "ntt_slab": "ntt-two-register-passes",
-           "ntt_outer": "ntt-leading-stages"}
+           "ntt_outer": "ntt-leading-stages",
+           "gf_matmul_batched": "imma-u8-limbs-batched"}
 SLAB_MAX_Z = 4096
 
 
@@ -402,13 +418,17 @@ def timed_op(system, name: str, fn):
     out = fn()
     wall = (time.perf_counter() - t0) * 1e3
     split = dict.fromkeys(LEGS + ("kernels",), 0.0)
+    spans: dict = {}
     for ev in tracer.events()[n0:]:
         key = ev["name"] if ev["name"] in LEGS else "kernels"
         split[key] += ev["dur"] / 1e3
+        if key == "kernels":
+            spans[ev["name"]] = spans.get(ev["name"], 0.0) + ev["dur"] / 1e3
     line = {"op": name, "spec": f"{system.spec.kind} K={system.spec.K} "
-            f"R={system.spec.R}", "wall_ms": wall}
+            f"R={system.spec.R}", "backend": system.backend, "wall_ms": wall}
     line.update({f"{k}_ms": v for k, v in split.items()})
     line["host_other_ms"] = wall - sum(split.values())
+    line["kernel_spans_ms"] = spans
     print(json.dumps(line))
     return out
 
@@ -421,20 +441,22 @@ def oracle_parity(A, x):
 
 
 def reset_counts() -> None:
-    from repro_torch.kernels import gf_matmul, ntt
+    from repro_torch.kernels import gf_matmul, gf_matmul_batched, ntt
 
     gf_matmul.launches = 0
+    gf_matmul_batched.launches = 0
     ntt.launches = 0
     ntt.launches_by_kernel = dict.fromkeys(ntt.launches_by_kernel, 0)
 
 
 def read_counts() -> dict:
-    from repro_torch.kernels import gf_matmul, ntt
+    from repro_torch.kernels import gf_matmul, gf_matmul_batched, ntt
 
     return {"gf_matmul": gf_matmul.launches,
             "ntt": ntt.launches_by_kernel["registers"],
             "ntt_slab": ntt.launches_by_kernel["slab"],
-            "ntt_outer": ntt.launches_by_kernel["outer"]}
+            "ntt_outer": ntt.launches_by_kernel["outer"],
+            "gf_matmul_batched": gf_matmul_batched.launches}
 
 
 def main_path_phase():
@@ -506,6 +528,235 @@ def main_path_phase():
                             y[:, :cols]), f"{spec}: parity differs from x^T A")
         for name, n in counts.items():
             total[name] += n
+    return total
+
+
+# ---------------------------------------------------------------------------
+# mesh phase: gf_matmul's batched entry, then the mesh backend
+# ---------------------------------------------------------------------------
+
+def batched_kernel_phase(gen) -> dict:
+    """`gf_matmul_batched` bitwise against its plain version at the mesh
+    combine's shape and at edge shapes; the main shape timed beside the
+    plain version and the `bmm` yardstick.  Returns its summary entry."""
+    import torch
+
+    from repro_torch.kernels import gf_matmul_batched, gf_matmul_batched_plain
+
+    dev = torch.device("cuda")
+    worst = 0
+
+    def rnd(*shape):
+        return torch.randint(0, Q, shape, generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    def check(name, a, b):
+        nonlocal worst
+        got = gf_matmul_batched(a, b)
+        err = max_abs_err(got, gf_matmul_batched_plain(a, b))
+        worst = max(worst, err)
+        print(json.dumps({"check": f"gf_matmul_batched {name}",
+                          "shape": list(got.shape), "max_abs_err": err,
+                          "tolerance": 0}))
+        need(err == 0, f"gf_matmul_batched {name}: results differ ({err})")
+        return got
+
+    # edge shapes: B = M = K = 1 with N just past one slab and a = 65536;
+    # per-batch 65536 flags; M past one 32-row tile; K past one chunk
+    a = torch.full((1, 1, 1), Q - 1, device=dev, dtype=torch.int32)
+    check("edge B=1 M=1 K=1 N=129, a = 65536", a, rnd(1, 1, 129))
+    a, b = rnd(3, 33, 300), rnd(3, 300, 1000)
+    a[1, 32, 7] = Q - 1
+    b[2, 299, 999] = Q - 1
+    check("edge (3; 33x300 . 300x1000), one 65536 in one batch", a, b)
+    check("edge (5; 9x8 . 8x7)", rnd(5, 9, 8), rnd(5, 8, 7))
+
+    # the mesh combine at rs K=256 R=64: [coef; corr] (9 x 8) . buf (8 x W)
+    B, M, K, N = 256, 9, 8, MAIN_W
+    a, b = rnd(B, M, K), rnd(B, K, N)
+    got = check("mesh combine (256; 9x8 . 8x2^18)", a, b)
+
+    def library(a=a, b=b):  # exact: 8 products < 2^35 < 2^53
+        return torch.remainder(torch.bmm(a.double(), b.double()), Q)
+
+    lib_err = max_abs_err(library().long(), got)
+    need(lib_err == 0, f"bmm yardstick differs ({lib_err})")
+    nbytes = 4 * (B * M * K + B * K * N + B * M * N)
+    ops = sum(imma_macs(a[z], b[z]) for z in range(B))
+    b_ms, b_by = bound(nbytes, ops, INT8_MAC_PER_S)
+    k_ms = time_ms(lambda: gf_matmul_batched(a, b), 20)
+    p_ms = time_ms(lambda: gf_matmul_batched_plain(a, b), 3)
+    l_ms = time_ms(library, 5)
+    print(json.dumps({
+        "kernel": "gf_matmul_batched", "design": DESIGNS["gf_matmul_batched"],
+        "shape": "mesh combine (256; 9x8 . 8x2^18)", "main_path_shape": True,
+        "bytes": nbytes, "ops": ops, "kernel_ms": k_ms, "plain_ms": p_ms,
+        "library_ms": l_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "bound_share": b_ms / k_ms}))
+    del a, b, got  # their blocks stay cached for the phases after
+    return {"shapes": ["mesh combine (256; 9x8 . 8x2^18)"], "ms": k_ms,
+            "plain_ms": p_ms, "library_ms": l_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "max_abs_err": worst}
+
+
+class PlainCalls:
+    """Counts calls of the kernels' plain versions made by the wrappers
+    (`kernels.gf_matmul` and `kernels.ntt` call them only for CPU tensors):
+    a path on the card must make none."""
+
+    NAMES = (("repro_torch.kernels.gf_matmul", "gf_matmul_plain"),
+             ("repro_torch.kernels.gf_matmul", "gf_matmul_batched_plain"),
+             ("repro_torch.kernels.ntt", "ntt_plain"))
+
+    def __enter__(self):
+        import importlib
+
+        self.n = 0
+        self.saved = []
+        for mod_name, name in self.NAMES:
+            mod = importlib.import_module(mod_name)
+            fn = getattr(mod, name, None)
+            if fn is None:
+                continue
+            self.saved.append((mod, name, fn))
+
+            def counted(*args, _fn=fn, **kwargs):
+                self.n += 1
+                return _fn(*args, **kwargs)
+            setattr(mod, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+def mesh_phase() -> dict:
+    """The mesh backend on the card (G = 1: every processor in one tensor):
+    the main path's chain at rs 256/64, W=2^18, 64 seeded erasures, each
+    op against the local backend's output; a forced method="rs" encode, a
+    dft 4096 encode and a commuted (`build_ir_mesh_program`) rs 256/64
+    encode.  Every op with the launch counts set to 0 just before and read
+    just after.  Returns each kernel's launches summed."""
+    import torch
+
+    from repro_torch.api import CodedSystem, CodeSpec, Topology
+    from repro_torch.core.shardmap_exec import build_ir_mesh_program
+    from repro_torch.recover.backends import _mesh_callables
+
+    rng = np.random.default_rng(SEED + 16)
+    spec = CodeSpec(kind="rs", K=256, R=64)
+    W = MAIN_W
+    x = rng.integers(0, Q, (spec.K, W), dtype=np.int64)
+    dead = seeded_erasures(rng, spec.K, spec.R)
+    total = dict.fromkeys(DESIGNS, 0)
+
+    local = CodedSystem(spec, backend="local")  # the references, uncounted
+    ref_cw = local.codeword(x)
+    lost = ref_cw.copy()
+    lost[dead] = 0
+    local.close()
+
+    def op(system, name, fn, want, expect):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        with PlainCalls() as plain:
+            out = timed_op(system, name, fn)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        for k, n in counts.items():
+            total[k] += n
+        ok = np.array_equal(out, want)
+        print(json.dumps({
+            "mesh_op": name, "spec": f"{system.spec.kind} K={system.spec.K} "
+            f"R={system.spec.R}", "method": system.encode_plan.method,
+            "launches": counts, "plain_calls": plain.n, "equal_local": ok,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "mesh": system.encode_plan.describe().splitlines()[-1].strip()}))
+        need(ok, f"mesh {name} differs from the local backend")
+        need(plain.n == 0, f"mesh {name}: a plain version ran on the card")
+        for k, n in expect.items():
+            need(counts[k] == n, f"mesh {name}: {k} launched {counts[k]} "
+                 f"times, expected {n}")
+        return out
+
+    def built(system, what: str):
+        """Build the session's mesh programs (plan-time work: tables, their
+        rows on the card) before the timed op, and print how long it took."""
+        t0 = time.perf_counter()
+        if what == "encode":
+            system.encode_plan.mesh_callable()
+        else:
+            _mesh_callables(system.decode_plan)
+        torch.cuda.synchronize()
+        print(json.dumps({"op": f"build mesh {what} program", "spec":
+                          f"{system.spec.kind} K={system.spec.K} "
+                          f"R={system.spec.R}", "wall_ms":
+                          (time.perf_counter() - t0) * 1e3}))
+
+    t0 = time.perf_counter()
+    system = CodedSystem(spec, backend="mesh", trace=True)
+    need(system.encode_plan.method == "universal", system.encode_plan.method)
+    print(json.dumps({"op": "plan_encode", "backend": "mesh", "wall_ms":
+                      (time.perf_counter() - t0) * 1e3}))
+    built(system, "encode")
+    one_stage = {"gf_matmul_batched": 1, "gf_matmul": 0, "ntt": 0}
+    cw = op(system, "codeword", lambda: system.codeword(x), ref_cw, one_stage)
+    system.fail(dead.tolist())
+    built(system, "decode")
+    op(system, "read", lambda: system.read(lost), x,
+       {"gf_matmul_batched": 0, "gf_matmul": 1})
+    batches = system.decode_plan.tables.batches()
+    op(system, "rebuild", lambda: system.rebuild(lost), cw,
+       dict(one_stage, gf_matmul_batched=len(batches)))
+    system.heal()
+    need(system.failed == (), system.failed)
+    print(json.dumps({"mesh_path": f"rs K=256 R=64 W={W}", "erased":
+                      len(dead), "codeword_read_rebuild_equal_local": True,
+                      "decode_batches": batches}))
+    system.close()
+
+    # the forced Thm. 7 schedule: draw-and-loose, here DFT butterflies
+    system = CodedSystem(spec, backend="mesh", method="rs", trace=True)
+    built(system, "encode")
+    op(system, "encode method=rs", lambda: system.encode(x), ref_cw[spec.K:],
+       {"gf_matmul": 0, "ntt": 0})
+    system.close()
+
+    # dft K=4096: the paper's butterfly rounds across 4096 processors
+    dspec = CodeSpec(kind="dft", K=MESH_DFT_K, R=MESH_DFT_K)
+    xd = rng.integers(0, Q, (dspec.K, DFT_W), dtype=np.int64)
+    ref = CodedSystem(dspec, backend="local")
+    want = ref.encode(xd)
+    ref.close()
+    system = CodedSystem(dspec, backend="mesh", trace=True)
+    built(system, "encode")
+    op(system, f"encode dft K={MESH_DFT_K} W={DFT_W}",
+       lambda: system.encode(xd), want,
+       {"gf_matmul_batched": 0, "gf_matmul": 0, "ntt": 0})
+    system.close()
+
+    # a commute=True plan: the generic IR lowering at rs 256/64
+    t0 = time.perf_counter()
+    system = CodedSystem(spec, backend="mesh", trace=True, commute=True,
+                         topology=Topology(*MESH_COMMUTE_TOPO))
+    plan = system.encode_plan
+    ir = plan.schedule_ir()
+    prog = build_ir_mesh_program(ir, list(range(spec.K)) + list(range(spec.R)))
+    build_s = time.perf_counter() - t0
+    fired = any(r.tag.startswith("commute") for r in ir.rounds)
+    print(json.dumps({"commuted_plan": f"rs K=256 R=64 on Topology"
+                      f"{MESH_COMMUTE_TOPO}", "host_build_s": build_s,
+                      "rewrite_fired": fired, "rounds": len(prog.rounds),
+                      "legs": sum(len(legs) for legs, _ in prog.rounds),
+                      "slots": prog.n_slots}))
+    need(build_s < 60, f"commuted plan's host build took {build_s:.1f} s")
+    need(fired, "the tier_commute rewrite did not fire")
+    built(system, "encode")
+    op(system, "encode commute=True", lambda: system.encode(x),
+       ref_cw[spec.K:], {"gf_matmul": 0, "ntt": 0})
+    system.close()
     return total
 
 
@@ -1221,7 +1472,10 @@ def main() -> int:
                   "half the FMA rate"}}))
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     summary = kernel_phase(gen)
+    summary["gf_matmul_batched"] = batched_kernel_phase(gen)
     launches = main_path_phase()
+    for name, n in mesh_phase().items():
+        launches[name] += n
     for name, n in stream_phase().items():
         launches[name] += n
     simulator_phase()
@@ -1237,7 +1491,9 @@ def main() -> int:
                "ntt_slab": ("src/repro_torch/csrc/ntt.cu",
                             "src/repro/kernels/ntt.py:80"),
                "ntt_outer": ("src/repro_torch/csrc/ntt.cu",
-                             "src/repro/kernels/ntt.py:80")}
+                             "src/repro/kernels/ntt.py:80"),
+               "gf_matmul_batched": ("src/repro_torch/csrc/gf_matmul.cu",
+                                     "src/repro/kernels/gf_matmul.py:53")}
     kernels = []
     for name, (source, replaces) in sources.items():
         s = summary[name]

@@ -17,13 +17,16 @@ Architecture (each layer public, each composing the one below):
      recover.planner)            (x erasure pattern for decode) and device
     Backend registry           — `Backend` protocol + `register_backend`;
     (api.registry,               capability checks at plan time; built-ins
-     api.backends)               "local" (the card) and "simulator" (the
-                                 host-only round network)
+     api.backends)               "local" (the card), "simulator" (the
+                                 host-only round network) and "mesh" (the
+                                 paper's rounds on processors, K/G per
+                                 rank)
     kernels / core             — the CUDA field-matmul and NTT kernels and
                                  their plain versions; numpy host tables,
-                                 the schedule IR and the round simulator
+                                 the schedule IR, the round simulator and
+                                 the processor mesh
 
-Plans execute on either backend with bitwise-identical results;
+Plans execute on any backend with bitwise-identical results;
 `plan.run_stream`/`run_batched` stream them (api.stream).  Every entry
 point runs on "cuda" unless given `device=` (moot on the simulator).
 """

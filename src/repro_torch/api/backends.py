@@ -1,20 +1,30 @@
-"""The two built-in executors behind `EncodePlan.run`, registered on the
+"""The three built-in executors behind `EncodePlan.run`, registered on the
 `api.registry` Backend protocol.
 
     simulator — the round-based `RoundNetwork` lockstep engine (exact numpy
                 oracle on the host; measured C1/C2 recorded thread-locally
                 on `plan.last_stats` / `plan.sim_net`).  It touches no
                 device, so a simulator plan's `device` is None.
+    mesh      — the paper's decentralized rounds on a processor mesh
+                (`core.shardmap_exec.ProcMesh`): each rank of the process
+                group (one rank without a group) owns a contiguous block of
+                K/G processors on its device; a round is an index copy
+                inside the block plus one `batch_isend_irecv` across ranks;
+                the per-processor combine is the batched `gf_matmul` kernel;
+                sinks overlay processors 0..R-1
     local     — single-device encode on the plan's torch device: the NTT
                 fast path (`kernels.ntt_encode`, the `ntt` CUDA kernels) or
                 the dense `kernels.ops.encode_blocks` field matmul (the
                 `gf_matmul` CUDA kernel); no communication schedule at all
 
-Both return the JAX package's sink values bitwise: sink r holds
+All three return the JAX package's sink values bitwise: sink r holds
 x^T A[:, r] over F_q.  Inputs/outputs are numpy int64 (K, W) -> (R, W); on
 the device payloads are int32.  The decode halves live in
-`recover.backends`; the `Backend` objects below bind both.  The mesh
-backend is not ported yet (ROADMAP queue 1, item 7).
+`recover.backends`; the `Backend` objects below bind both.
+
+With G > 1 ranks the mesh is SPMD: every rank calls the same entry point
+with the same payload, copies its own block of it to its device, and gets
+the same numpy result (the output blocks are all-gathered).
 """
 from __future__ import annotations
 
@@ -25,7 +35,7 @@ from ..core import schedule
 from ..core.field import FERMAT_Q
 from ..core.simulator import RoundNetwork
 from ..obs.trace import kernel_span
-from .registry import Backend, register_backend
+from .registry import Backend, BackendCapabilityError, register_backend
 
 
 def run_simulator(plan, x: np.ndarray) -> tuple[np.ndarray, RoundNetwork]:
@@ -103,6 +113,66 @@ def run_local(plan, x: np.ndarray) -> np.ndarray:
                          kind=plan.spec.kind, K=plan.spec.K)
 
 
+def _mesh_axes(plan):
+    """The plan's `TieredAxis` — a (hosts x K/hosts) split of the
+    processors when the plan carries a multi-host topology whose host count
+    divides K — or None for the flat mesh.  It classifies the legs
+    (`ProcMesh.legs`); the processor layout and outputs are the same."""
+    from ..core.shardmap_exec import TieredAxis
+
+    topo = getattr(plan, "topology", None)
+    K = plan.spec.K
+    if topo is not None and 1 < topo.hosts <= K and K % topo.hosts == 0:
+        return TieredAxis(topo.hosts, K // topo.hosts)
+    return None
+
+
+def build_mesh_callable(plan):
+    """The plan's mesh program (a `core.shardmap_exec.MeshStep`): this
+    rank's (K/G, w) int32 block on `plan.device` -> the (R, w) sink values
+    ((K, w) for dft), gathered from every rank."""
+    from ..core import shardmap_exec as se
+    from ..core.parity import mesh_parity_encode
+
+    spec = plan.spec
+    mesh = se.ProcMesh(spec.K, plan.device, tiered=_mesh_axes(plan))
+
+    if spec.kind == "dft":
+        t = plan.tables.dft_mesh_tables()
+        ca, cb = mesh.rows(t.ca.T), mesh.rows(t.cb.T)
+        return se.MeshStep(mesh, lambda xb: se.mesh_dft(xb, ca, cb, t, mesh),
+                           spec.K)
+
+    if spec.K % spec.R != 0:
+        raise BackendCapabilityError(
+            f"mesh backend covers the R | K grid (Sec. III-A); got "
+            f"K={spec.K}, R={spec.R}")
+
+    if getattr(plan, "commute", False):
+        # a tier_commute-rewritten schedule no longer matches the
+        # hand-built table path: lower its IR generically (per-round
+        # permutation legs + combine layers, see core.shardmap_exec)
+        dev_of = list(range(spec.K)) + list(range(spec.R))  # sink K+r -> r
+        prog = se.build_ir_mesh_program(plan.schedule_ir(), dev_of)
+        rows = se.ir_rows(prog, mesh)
+        return se.MeshStep(
+            mesh, lambda xb: se.mesh_ir_encode(xb, rows, prog, mesh), spec.R)
+
+    t = plan.tables.mesh_tables(plan.method)
+    rows = t.device_rows(mesh)
+    return se.MeshStep(
+        mesh, lambda xb: mesh_parity_encode(xb, rows, t, mesh), spec.R)
+
+
+def run_mesh(plan, x: np.ndarray) -> np.ndarray:
+    """Encode on the processor mesh: this rank's block of x goes to its
+    device, the sink rows come back from every rank."""
+    fn = plan.mesh_callable()
+    return run_on_device(fn, np.asarray(x)[fn.mesh.block], plan.field.q,
+                         plan.device, "mesh_encode", kind=plan.spec.kind,
+                         K=plan.spec.K)
+
+
 # ---------------------------------------------------------------------------
 # the built-in Backend registrations (encode halves above, decode halves in
 # recover.backends — imported lazily to keep the api <-> recover import DAG
@@ -152,5 +222,50 @@ class LocalBackend(Backend):
 
     def decode(self, plan, v):
         from ..recover.backends import run_local as run_dec
+
+        return run_dec(plan, v)
+
+
+@register_backend("mesh")
+class MeshBackend(Backend):
+    """The paper's decentralized rounds on a processor mesh: each rank owns
+    K/G processors on its device (G = 1 on one card), rounds are index
+    copies inside a rank and `batch_isend_irecv` across ranks.  Fermat
+    only; encode additionally needs the R | K framework grid (Sec. III-A)
+    for non-dft kinds, and K must split evenly over the ranks.
+    `supports_stream`: `plan.run_stream` runs the device pipeline of
+    `api.stream` over the mesh program."""
+
+    supports_stream = True
+    field_note = f"the CUDA kernels are Fermat-only, q={FERMAT_Q}"
+
+    def supports_field(self, q: int) -> bool:
+        return q == FERMAT_Q
+
+    def device_requirement(self, spec) -> int:
+        return 1  # per rank: cuda:local_rank, or device="cpu"
+
+    def validate(self, spec, op: str = "encode") -> None:
+        from ..core.shardmap_exec import world
+
+        # structural mismatches first: they hold on any device count
+        if op == "encode" and spec.kind != "dft" and spec.K % spec.R != 0:
+            raise BackendCapabilityError(
+                f"mesh encode covers the R | K framework grid (Sec. III-A); "
+                f"got K={spec.K}, R={spec.R} — use backend='simulator' or "
+                "'local' for this spec")
+        G = world()[0]
+        if spec.K % G:
+            raise BackendCapabilityError(
+                f"mesh backend splits K={spec.K} processors over the {G} "
+                f"ranks of the process group in equal blocks: K % G must "
+                "be 0")
+        super().validate(spec, op)
+
+    def encode(self, plan, x):
+        return run_mesh(plan, x)
+
+    def decode(self, plan, v):
+        from ..recover.backends import run_mesh as run_dec
 
         return run_dec(plan, v)

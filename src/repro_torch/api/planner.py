@@ -19,7 +19,8 @@ C = alpha*C1 + beta_bits*C2 (C2 already scaled by the spec's payload width
 W) over the schedules available for the spec (universal prepare-and-shoot
 always; the RS/Lagrange-specific draw-and-loose factorization when the code
 is structured).  Every plan's round program is one `core.schedule.RoundIR`
-(`plan.schedule_ir()`): the simulator backend executes it, and the local
+(`plan.schedule_ir()`): the simulator backend executes it, the mesh
+backend runs the same method's rounds on its processors, and the local
 backend runs no schedule but reports the same method and program.
 """
 from __future__ import annotations
@@ -38,7 +39,7 @@ from ..core.dft_a2a import cost_dft
 from ..core.field import Field
 from ..topo import (Placement, TieredCost, TieredLinkModel, Topology,
                     n_procs as topo_n_procs, place, tiered_encode_cost)
-from . import backends as _backends  # noqa: F401 — registers "local"
+from . import backends as _backends  # noqa: F401 — registers the built-ins
 from .registry import PlanStats, get_backend, plan_device
 from .spec import CodeSpec
 
@@ -55,8 +56,8 @@ BETA_BITS_DEFAULT = 17e-9
 @dataclass
 class HostTables:
     """Everything host-side a plan needs: the generator block, the structured
-    code (when any), the schedule IR per method and the NTT fast-path
-    constants."""
+    code (when any), the schedule IR per method, the NTT fast-path
+    constants and the mesh tables."""
 
     spec: CodeSpec
     field: Field
@@ -64,6 +65,7 @@ class HostTables:
     sgrs: StructuredGRS | None
     _ntt: Any = "unset"                # lazy NTTEncodeParams | None
     _ir: dict = dc_field(default_factory=dict)  # method -> RoundIR
+    _mesh: dict = dc_field(default_factory=dict)  # method -> mesh tables
 
     def encode_ir(self, method: str):
         """The canonical (placement-free) `core.schedule.RoundIR` of the
@@ -76,6 +78,26 @@ class HostTables:
                 self.spec, method=method, A=self.A,
                 sgrs=self.sgrs).validate()
         return self._ir[method]
+
+    def mesh_tables(self, method: str):
+        """`core.parity.ParityTables` of the framework grid for the mesh
+        backend, built once per method."""
+        if method not in self._mesh:
+            from ..core.parity import build_encode_tables
+
+            self._mesh[method] = build_encode_tables(
+                self.field, self.A, p=self.spec.p, method=method,
+                sgrs=self.sgrs)
+        return self._mesh[method]
+
+    def dft_mesh_tables(self):
+        """The mesh backend's radix-2 DFT stage tables, built once."""
+        if "dft" not in self._mesh:
+            from ..core.shardmap_exec import build_dft_tables
+
+            self._mesh["dft"] = build_dft_tables(self.field, self.spec.K,
+                                                 self.spec.K)
+        return self._mesh["dft"]
 
     def ntt_params(self):
         """NTT fast-path constants for the local backend (None when the
@@ -235,6 +257,7 @@ class EncodePlan(PlanStats):
     # placement; the simulator backend executes the rewritten program)
     commute: bool = False
     _local_fn: Callable | None = None
+    _mesh_fn: Callable | None = None
     _ir: Any = None                    # lazily-resolved plan-level RoundIR
     # thread-local per-run stats storage (PlanStats reads/writes this)
     _tls: Any = dc_field(default_factory=threading.local, repr=False)
@@ -293,10 +316,19 @@ class EncodePlan(PlanStats):
 
     def _stream_device_fn(self):
         """The per-chunk device function of the pipeline: (K, w) int32 ->
-        (R, w) int32 on `plan.device`."""
+        (R, w) int32 on `plan.device` ((K/G, w), this rank's block, on the
+        mesh; (K, w) out for dft)."""
+        if self.backend == "mesh":
+            return self.mesh_callable()
         from .backends import local_encode_callable
 
         return local_encode_callable(self)
+
+    def _stream_rows(self) -> slice | None:
+        """The payload rows this rank copies to its device (the mesh
+        block), or None for all."""
+        return self.mesh_callable().mesh.block if self.backend == "mesh" \
+            else None
 
     def schedule_ir(self):
         """The plan's `core.schedule.RoundIR`: the canonical per-method
@@ -311,9 +343,17 @@ class EncodePlan(PlanStats):
         return self._ir
 
     def mesh_callable(self):
-        raise NotImplementedError(
-            "the mesh backend is not ported to repro_torch yet (ROADMAP "
-            "queue 1, item 7)")
+        """The mesh program (mesh backend only): this rank's (K/G, w) int32
+        block on `plan.device` -> (R, w) sink values ((K, w) for dft);
+        built once, its table rows moved to the device once, kept for the
+        plan's lifetime."""
+        if self.backend != "mesh":
+            raise ValueError("mesh_callable() is for backend='mesh' plans")
+        if self._mesh_fn is None:
+            from .backends import build_mesh_callable
+
+            self._mesh_fn = build_mesh_callable(self)
+        return self._mesh_fn
 
     @property
     def local_impl(self) -> str:
@@ -379,7 +419,23 @@ class EncodePlan(PlanStats):
                      else " (the kernels' plain versions)")
             lines.append(f"  note    : local backend runs the {impl} on "
                          f"{self.device}{plain}; no schedule is executed")
+        if self.backend == "mesh":
+            lines.append(f"  mesh    : {mesh_note(self)}")
         return "\n".join(lines)
+
+
+def mesh_note(plan) -> str:
+    """A mesh plan's (encode or decode) layout — G ranks x K/G processors —
+    and, once its mesh program exists, the legs it has run by tier."""
+    built = (getattr(plan, "_mesh_fn", None)
+             or (getattr(plan, "_mesh_fns", None) or [None])[0])
+    if built is not None:
+        return built.mesh.describe()
+    from ..core.shardmap_exec import world
+
+    G = world()[0]
+    return (f"G={G} ranks x {plan.spec.K // G} processors on {plan.device}; "
+            "no legs run yet")
 
 
 # ---------------------------------------------------------------------------
@@ -400,8 +456,8 @@ class Encoder:
         """Plan an encode: resolve the algorithm, build-or-reuse host tables,
         and return the cached executable plan.
 
-        backend : a registered backend name — "local" | "simulator"
-                  built in, plus anything added via
+        backend : a registered backend name — "local" | "simulator" |
+                  "mesh" built in, plus anything added via
                   `api.register_backend` (capability-checked here, at
                   plan time)
         method  : "auto" (cost-model argmin) | "universal" | "rs" | "dft"
@@ -411,7 +467,9 @@ class Encoder:
         topology: a `repro_torch.topo.Topology` (placed with the affinity
                   policy when it has enough slots) or an explicit
                   `Placement`; with a `TieredLinkModel` link, "auto" prices
-                  each method by its per-tier split.
+                  each method by its per-tier split.  The mesh backend
+                  classifies its legs by tier (`ProcMesh.legs`) when the
+                  host count divides K.
         link    : `LinkModel` or `repro_torch.topo.TieredLinkModel`.
         commute : apply the `RoundIR.tier_commute` rewrite pass under the
                   resolved placement (required): the commuting reduce

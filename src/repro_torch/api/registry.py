@@ -1,7 +1,7 @@
 """Backend protocol + registry: the single dispatch surface behind BOTH
 planners (`Encoder`/`EncodePlan` and `recover.Decoder`/`DecodePlan`).
 
-A *backend* is an executor for planned encodes/decodes.  The port's two
+A *backend* is an executor for planned encodes/decodes.  The port's three
 built-ins (registered in `api.backends`) are interchangeable and
 bitwise-identical to the JAX package's backends of the same names:
 
@@ -10,9 +10,11 @@ bitwise-identical to the JAX package's backends of the same names:
     simulator — the paper's p-port round network (exact numpy oracle on
                 the host; measured C1/C2 on `plan.last_stats` /
                 `plan.sim_net`)
+    mesh      — the paper's decentralized rounds on a processor mesh: each
+                rank of the process group owns K/G processors on its one
+                device (the JAX package puts one device on each processor)
 
-The mesh backend is still to be ported.  Third-party / experimental
-executors plug in without touching core:
+Third-party / experimental executors plug in without touching core:
 
     from repro_torch.api import Backend, register_backend
 
@@ -57,7 +59,7 @@ _C2_ELEMS = _METRICS.counter("sim_c2_elems_total",
 class BackendCapabilityError(ValueError):
     """The (spec, backend) pair is unsupported: raised at plan time by
     `Backend.validate` with the capability that failed (field modulus,
-    device count, grid shape), never from inside a kernel."""
+    device count, grid shape, ranks), never from inside a kernel."""
 
 
 @dataclass(frozen=True)
@@ -92,8 +94,12 @@ class Backend:
                           it resolve no torch device (`plan_device`).
       supports_field(q) — which moduli the executor handles (the CUDA
                           kernels are Fermat-only).
-      device_requirement(spec) — minimum CUDA device count to execute
-                          plans of `spec` (mesh: one device per source).
+      device_requirement(spec) — CUDA devices each rank needs to run plans
+                          of `spec` on the card (mesh: one, `cuda:local_rank`;
+                          the JAX package counts one per processor).  It is
+                          checked where CUDA is present; a plan on
+                          `device="cpu"` needs none, and a CUDA plan without
+                          CUDA fails in `resolve_device`.
     """
 
     name: str = "?"
@@ -123,7 +129,7 @@ class Backend:
             import torch
 
             have = torch.cuda.device_count()
-            if have < need:
+            if torch.cuda.is_available() and have < need:
                 raise BackendCapabilityError(
                     f"backend {self.name!r} needs >= {need} CUDA devices "
                     f"for K={spec.K}, found {have}")

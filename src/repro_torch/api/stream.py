@@ -358,6 +358,13 @@ def device_stage(fn: Callable, device, q: int):
     raise ValueError(f"the stream pipeline runs on cuda or cpu, not {device}")
 
 
+def _block_rows(chunks: Iterator[np.ndarray], rows: slice | None):
+    """Each chunk's rows this rank copies to its device (a mesh plan on G
+    ranks takes its block of processors); all rows for `rows=None`."""
+    for c in chunks:
+        yield c if rows is None else c[rows]
+
+
 def _pipelined(chunks: Iterator[np.ndarray], stage,
                tracer=None) -> Iterator[np.ndarray]:
     """Double-buffered device pipeline.
@@ -406,8 +413,9 @@ def run_stream(plan, payload, *, chunk_w: int | None = None
     Dispatch follows the plan's registered backend capabilities: a
     network-measuring backend (simulator) runs lockstep per chunk and
     records exact per-chunk C1/C2 on `plan.stream_stats`; a
-    `supports_stream` backend (local) runs the device pipeline over the
-    plan's `_stream_device_fn()` on `plan.device`; any other registered
+    `supports_stream` backend (local, mesh) runs the device pipeline over
+    the plan's `_stream_device_fn()` on `plan.device` (a mesh rank copies
+    only its block of each chunk, `plan._stream_rows()`); any other registered
     backend streams by plain per-chunk `encode`/`decode` calls — no
     pipelining, but the bitwise contract still holds.
     """
@@ -438,7 +446,8 @@ def run_stream(plan, payload, *, chunk_w: int | None = None
     if backend.supports_stream:
         stage = device_stage(plan._stream_device_fn(), plan.device,
                              plan.field.q)
-        yield from _pipelined(chunks, stage, tracer=get_tracer())
+        yield from _pipelined(_block_rows(chunks, plan._stream_rows()),
+                              stage, tracer=get_tracer())
         return
     run_chunk = backend.encode if plan.op == "encode" else backend.decode
     for c in chunks:

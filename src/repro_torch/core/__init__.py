@@ -3,9 +3,12 @@ planning layer (point sets, structured GRS codes, the round simulator, the
 schedule IR every plan's round program lowers from, the Sec. III framework
 generators, and the Table-I cost model).
 
-Every module here except `field` is a copy of its counterpart in the JAX
-package, kept so that this package imports nothing of it.  `field` adds the
-torch int64 `fermat_*` functions the kernels' plain versions use.
+Every module here except `field`, `shardmap_exec` and `parity` is a copy of
+its counterpart in the JAX package, kept so that this package imports
+nothing of it.  `field` adds the torch int64 `fermat_*` functions the
+kernels' plain versions use; `shardmap_exec` and `parity` copy the JAX
+package's numpy table builders and run the mesh bodies on a processor
+mesh of torch ranks (`shardmap_exec.ProcMesh`).
 """
 from . import cost_model, schedule
 from .cauchy import StructuredGRS as StructuredGRSCode, cost_cauchy

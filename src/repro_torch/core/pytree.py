@@ -1,15 +1,16 @@
 """Nested containers of arrays ("trees") flattened in the JAX package's
 leaf order, so the same leaves give the same checkpoint bytes.
 
-The order is `jax.tree_util`'s for the containers a model state is made
-of: a `dict` by sorted key, an `OrderedDict` (what
-`torch.nn.Module.state_dict()` returns) in insertion order, a list, tuple
-or namedtuple in order, and `None` as a node with no leaves.  Anything
-else — a torch tensor, a numpy array, a Python scalar — is a leaf.
+The nodes are `jax.tree_util`'s: an exact `dict` and a `defaultdict` by
+sorted key, an exact `OrderedDict` (what `torch.nn.Module.state_dict()`
+returns) in insertion order, an exact `list` or `tuple` and any namedtuple
+in order, and `None` as a node with no leaves.  Anything else is a leaf: a
+torch tensor, a numpy array, a Python scalar, and every other subclass of
+list, tuple or dict (`torch.Size` among them), as in JAX.
 """
 from __future__ import annotations
 
-from collections import OrderedDict
+from collections import OrderedDict, defaultdict
 from dataclasses import dataclass
 from typing import Any, Callable
 
@@ -19,8 +20,9 @@ _END = object()
 @dataclass(frozen=True)
 class TreeDef:
     """The structure of a flattened tree: `kind` is "leaf", "none",
-    "dict", "odict", "list" or "tuple"; `node` holds the keys (dicts) or
-    the tuple type (namedtuples); `children` the subtrees' structures."""
+    "dict", "odict", "ddict", "list" or "tuple"; `node` holds the keys
+    (dicts; a defaultdict's are preceded by its `default_factory`) or the
+    tuple type (namedtuples); `children` the subtrees' structures."""
 
     kind: str
     node: Any = None
@@ -32,11 +34,12 @@ class TreeDef:
         if self.kind == "none":
             return "None"
         inner = ", ".join(map(str, self.children))
-        if self.kind in ("dict", "odict"):
-            inner = ", ".join(f"{k!r}: {c}"
-                              for k, c in zip(self.node, self.children))
-            return ("{" + inner + "}" if self.kind == "dict"
-                    else "OrderedDict({" + inner + "})")
+        if self.kind in ("dict", "odict", "ddict"):
+            keys = self.node[1:] if self.kind == "ddict" else self.node
+            inner = "{" + ", ".join(f"{k!r}: {c}"
+                                    for k, c in zip(keys, self.children)) + "}"
+            return {"dict": inner, "odict": f"OrderedDict({inner})",
+                    "ddict": f"defaultdict({inner})"}[self.kind]
         if self.kind == "list":
             return "[" + inner + "]"
         return f"{self.node.__name__}({inner})"
@@ -47,18 +50,23 @@ def tree_flatten(tree: Any) -> tuple[list, TreeDef]:
     leaves: list = []
 
     def walk(node) -> TreeDef:
+        kind = type(node)  # exact types: a subclass is a leaf, as in JAX
         if node is None:
             return TreeDef("none")
-        if isinstance(node, OrderedDict):
+        if kind is OrderedDict:
             keys = tuple(node)
             return TreeDef("odict", keys, tuple(walk(node[k]) for k in keys))
-        if isinstance(node, dict):
+        if kind is dict or kind is defaultdict:
             keys = tuple(sorted(node))
-            return TreeDef("dict", keys, tuple(walk(node[k]) for k in keys))
-        if isinstance(node, list):
+            return TreeDef("dict" if kind is dict else "ddict",
+                           keys if kind is dict
+                           else (node.default_factory,) + keys,
+                           tuple(walk(node[k]) for k in keys))
+        if kind is list:
             return TreeDef("list", None, tuple(walk(c) for c in node))
-        if isinstance(node, tuple):
-            return TreeDef("tuple", type(node), tuple(walk(c) for c in node))
+        if kind is tuple or (isinstance(node, tuple)
+                             and hasattr(kind, "_fields")):  # namedtuple
+            return TreeDef("tuple", kind, tuple(walk(c) for c in node))
         leaves.append(node)
         return TreeDef("leaf")
 
@@ -80,6 +88,8 @@ def tree_unflatten(treedef: TreeDef, leaves) -> Any:
             return dict(zip(td.node, kids))
         if td.kind == "odict":
             return OrderedDict(zip(td.node, kids))
+        if td.kind == "ddict":
+            return defaultdict(td.node[0], zip(td.node[1:], kids))
         if td.kind == "list":
             return kids
         if td.node is tuple:

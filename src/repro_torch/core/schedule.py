@@ -23,10 +23,9 @@ tests.  This module reifies the round schedule as a first-class IR so the
                `RoundNetwork` simulator (round-for-round identical to the
                legacy generators: same strides, same payload snapshots, so
                measured C1/C2 still equal the closed forms bit for bit);
-               `coeff_matrix()` recovers the generator block the
-               local/host tables consume.  (The mesh lowering, which
-               compiles IR rounds into point-to-point legs, comes with the
-               port's mesh backend.)
+               `core.shardmap_exec.build_ir_mesh_program` compiles IR
+               rounds into permutation legs; `coeff_matrix()` recovers
+               the generator block the local/host tables consume.
 
 This module is a copy of the JAX package's `core/schedule.py` (pure numpy),
 kept so that the port imports nothing of it.

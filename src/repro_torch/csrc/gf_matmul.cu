@@ -61,9 +61,19 @@
 // with zeros to a multiple of 16 in K.  Ragged M, N and K of the payload
 // are masked here; the host pads nothing.
 //
+// Batched entry.  `gf_matmul_batched_launch` runs B independent products in
+// one launch, batch index on blockIdx.y (B <= 65535) with 64-bit batch
+// strides; the 2-D entry is the same kernel body without the batch offsets
+// (a template flag), so its code and its times are those it had before.  It
+// serves the mesh backend's per-processor combine: at rs K=256 R=64 that
+// is B = 256 products (9 x 8) . (8 x 2^18), each a short, wide product the
+// slab design takes as it is (one M-tile, one k-step; rows past M read as
+// zero and are not written, the K pad is 0).  That shape moves 4.6 GB of b
+// and c: bound by bytes (1.36 ms at 3.35 TB/s, NVIDIA H100 80GB HBM3).
+//
 // Layouts: al (3, M, Kp) uint8 limb planes of a; ahi (M,) uint8 row flags;
 // b (K, N) and c (M, N) row-major int32 holding values in [0, q), read as
-// uint32.
+// uint32 (batched: each with a leading B axis).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -248,11 +258,24 @@ __device__ __forceinline__ void write_tile(Acc& acc, uint32_t* __restrict__ c,
       }
 }
 
+// kBatched: batch z = blockIdx.y multiplies its own operands (al, ahi, b
+// and c advance by z times their batch strides).  The one-product entry is
+// the kBatched = false instance, which compiles to the kernel as it was
+// before the batched entry existed (the strides are unused there).
+template <bool kBatched>
 __global__ void __launch_bounds__(THREADS, 2)
 gf_matmul_imma(const uint8_t* __restrict__ al, const uint8_t* __restrict__ ahi,
                const uint32_t* __restrict__ b, uint32_t* __restrict__ c,
-               int M, int N, int K, int Kp) {
+               int M, int N, int K, int Kp, long long s_al, long long s_ahi,
+               long long s_b, long long s_c) {
   extern __shared__ __align__(16) uint32_t smem[];
+  if constexpr (kBatched) {
+    const long long z = blockIdx.y;
+    al += z * s_al;
+    ahi += z * s_ahi;
+    b += z * s_b;
+    c += z * s_c;
+  }
   uint32_t* Bs = smem;                      // [2][BN][ST] b0, b1 (swizzled)
   uint32_t* Ab = smem + 2 * B_PLANE;        // [2 buffers][2][BM][ST] a0, a1
   uint8_t* B2 = reinterpret_cast<uint8_t*>(Ab + 2 * A_BUF);  // [KW][BN]
@@ -366,6 +389,25 @@ gf_matmul_imma(const uint8_t* __restrict__ al, const uint8_t* __restrict__ ahi,
   asm volatile("cp.async.wait_group 0;\n" ::);
 }
 
+// One launch of B products on `stream` (grid.y = B <= 65535).
+template <bool kBatched>
+int launch(const void* al, const void* ahi, const void* b, void* c, int B,
+           int M, int N, int K, int Kp, long long s_al, long long s_ahi,
+           long long s_b, long long s_c, void* stream) {
+  const cudaError_t err = cudaFuncSetAttribute(  // per device: set each call
+      gf_matmul_imma<kBatched>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SMEM_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  if (B > 0 && M > 0 && N > 0) {
+    const dim3 grid((unsigned)((N + BN - 1) / BN), (unsigned)B);
+    gf_matmul_imma<kBatched><<<grid, THREADS, SMEM_BYTES,
+                               (cudaStream_t)stream>>>(
+        (const uint8_t*)al, (const uint8_t*)ahi, (const uint32_t*)b,
+        (uint32_t*)c, M, N, K, Kp, s_al, s_ahi, s_b, s_c);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // c = (a @ b) mod 65537 on `stream`, with al the (3, M, Kp) u8 limb planes of
@@ -374,14 +416,15 @@ gf_matmul_imma(const uint8_t* __restrict__ al, const uint8_t* __restrict__ ahi,
 extern "C" int gf_matmul_launch(const void* al, const void* ahi, const void* b,
                                 void* c, int M, int N, int K, int Kp,
                                 void* stream) {
-  const cudaError_t err = cudaFuncSetAttribute(  // per device: set each call
-      gf_matmul_imma, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
-  if (err != cudaSuccess) return (int)err;
-  if (M > 0 && N > 0) {
-    const unsigned grid = (unsigned)((N + BN - 1) / BN);
-    gf_matmul_imma<<<grid, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
-        (const uint8_t*)al, (const uint8_t*)ahi, (const uint32_t*)b,
-        (uint32_t*)c, M, N, K, Kp);
-  }
-  return (int)cudaGetLastError();
+  return launch<false>(al, ahi, b, c, 1, M, N, K, Kp, 0, 0, 0, 0, stream);
+}
+
+// c[z] = (a[z] @ b[z]) mod 65537 for z < B, in one launch: al (B, 3, M, Kp)
+// limb planes, ahi (B, M) row flags, b (B, K, N) and c (B, M, N), each batch
+// contiguous after the one before.  Returns cudaGetLastError().
+extern "C" int gf_matmul_batched_launch(const void* al, const void* ahi,
+                                        const void* b, void* c, int B, int M,
+                                        int N, int K, int Kp, void* stream) {
+  return launch<true>(al, ahi, b, c, B, M, N, K, Kp, 3LL * M * Kp, M,
+                (long long)K * N, (long long)M * N, stream);
 }

@@ -1,4 +1,5 @@
-"""Plain PyTorch versions of the two CUDA kernels (exact, int64, any device).
+"""Plain PyTorch versions of the two CUDA kernels and of gf_matmul's batched
+entry (exact, int64, any device).
 
 The CPU runs these in place of the kernels; on the card they serve only to
 check the kernels (`chip_smoke.py`), never the main path.  PyTorch has no
@@ -31,6 +32,22 @@ def gf_matmul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     for s in range(0, K, step):
         prods = a[:, s:s + step, None] * b[None, s:s + step, :]  # (M, c, N)
         out = (out + prods.sum(dim=1)) % FERMAT_Q
+    return out
+
+
+def gf_matmul_batched_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(a[z] @ b[z]) mod 65537 for every z, exact: a (B, M, K), b (B, K, N)
+    integer tensors with values in [0, q) -> (B, M, N) int64, by the
+    chunked int64 sums of `gf_matmul_plain`."""
+    B, M, K = a.shape
+    B2, K2, N = b.shape
+    assert (B, K) == (B2, K2), (a.shape, b.shape)
+    a, b = a.long(), b.long()
+    out = torch.zeros((B, M, N), dtype=torch.int64, device=a.device)
+    step = max(1, _CHUNK_ELEMS // max(1, B * M * N))
+    for s in range(0, K, step):
+        prods = a[:, :, s:s + step, None] * b[:, None, s:s + step, :]
+        out = (out + prods.sum(dim=2)) % FERMAT_Q
     return out
 
 

@@ -16,13 +16,15 @@ full message space raises `UndecodableError`).
 
 Like the encoder, everything host-side happens once at plan time and is
 cached: the survivor submatrix inverse S^-1, the repair matrix
-D = S^-1 G[:, E] (numpy, exact) and the decode schedule IR, and per plan
-their copies on the device.  Two backends return bitwise-identical
-symbols:
+D = S^-1 G[:, E] (numpy, exact), the decode schedule IR and the mesh
+tables of each repair batch, and per plan their copies on the device.
+Three backends return bitwise-identical symbols:
 
     simulator — all-to-all decode among the survivors on a RoundNetwork
                 with the erased processors `fail()`-ed (measured C1/C2 on
                 `plan.sim_net`; host only)
+    mesh      — survivors as processors of the mesh, one universal mesh
+                all-to-all per repair batch (`recover.backends`)
     local     — single-device `decode_blocks` (the `gf_matmul` kernel)
 
 `repair_with_faults` restarts a simulator repair against the enlarged
@@ -94,6 +96,7 @@ class DecodeTables:
     D: np.ndarray                # (K, |E|) repair matrix  S^-1 G[:, E]
     Dd: np.ndarray               # (K, K)  data matrix     S^-1
     _ir: Any = None              # lazy core.schedule.RoundIR
+    _mesh: dict = dc_field(default_factory=dict)  # batch -> mesh tables
 
     def ir(self):
         """The decode `core.schedule.RoundIR` among the kept survivors,
@@ -114,6 +117,17 @@ class DecodeTables:
         """Zero-padded (K, E') column block of D for batch b (the same
         blocks the simulator schedule runs — see `engine.batch_block`)."""
         return batch_block(self.D, b)
+
+    def mesh_tables(self, b: int):
+        """`core.parity.ParityTables` for batch b's universal mesh
+        all-to-all, built once."""
+        if b not in self._mesh:
+            from ..core.parity import build_encode_tables
+
+            self._mesh[b] = build_encode_tables(
+                self.field, self.batch_block(b), p=self.spec.p,
+                method="universal")
+        return self._mesh[b]
 
 
 # Unlike the encoder's caches (keyed by a handful of specs), decode keys
@@ -185,6 +199,7 @@ class DecodePlan(PlanStats):
     tables: DecodeTables
     device: Any = None           # torch.device (None: host-only backend)
     _local_fn: Any = None
+    _mesh_fns: list | None = None
     _Dd: Any = None              # lazy device copy of tables.Dd (int32)
     # thread-local per-run stats storage (PlanStats reads/writes this)
     _tls: Any = dc_field(default_factory=threading.local, repr=False)
@@ -267,10 +282,22 @@ class DecodePlan(PlanStats):
 
     def _stream_device_fn(self):
         """The per-chunk device function of the pipeline: (K, w) int32 ->
-        (|E|, w) int32 on `plan.device`."""
-        from .backends import local_decode_callable
+        (|E|, w) int32 on `plan.device` ((K/G, w), this rank's block, on
+        the mesh)."""
+        from .backends import local_decode_callable, mesh_decode_fn
 
+        if self.backend == "mesh":
+            return mesh_decode_fn(self)
         return local_decode_callable(self)
+
+    def _stream_rows(self) -> slice | None:
+        """The survivor rows this rank copies to its device (the mesh
+        block), or None for all."""
+        if self.backend != "mesh":
+            return None
+        from .backends import _mesh_callables
+
+        return _mesh_callables(self)[0].mesh.block
 
     def data(self, v) -> np.ndarray:
         """Decode the full original data x (K, W) from the survivors (the
@@ -312,7 +339,7 @@ class DecodePlan(PlanStats):
         batches = self.tables.batches()
         sched = (self.schedule_ir().summary() if self.erased
                  else "empty (nothing erased)")
-        return "\n".join([
+        lines = [
             f"DecodePlan[{s.kind}] K={s.K} R={s.R} p={s.p} W={s.W} q={s.q}",
             f"  backend : {self.backend}",
             f"  erased  : {list(self.erased)} ({len(self.erased)} of <= {s.R})",
@@ -321,7 +348,12 @@ class DecodePlan(PlanStats):
             f"  cost    : C1={c.C1} rounds, C2={c.C2} elems/port "
             f"(model C ~ {model_us:.1f} us)",
             f"  schedule: {sched}",
-        ])
+        ]
+        if self.backend == "mesh":
+            from ..api.planner import mesh_note
+
+            lines.append(f"  mesh    : {mesh_note(self)}")
+        return "\n".join(lines)
 
 
 # ---------------------------------------------------------------------------
@@ -447,8 +479,9 @@ class Decoder:
         erased : iterable of codeword positions in [0, K + R); data symbol
                  k is position k, parity symbol r is position K + r.
                  At most R positions may be erased.
-        backend: a registered backend name ("local" | "simulator" built
-                 in; see `api.register_backend`), capability-checked here
+        backend: a registered backend name ("local" | "simulator" |
+                 "mesh" built in; see `api.register_backend`),
+                 capability-checked here
         A      : explicit generator block for kind="universal"/"lagrange"
                  specs — must match the block the data was encoded with.
         device : the torch device the plan runs on; None means "cuda",

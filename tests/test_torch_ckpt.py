@@ -395,3 +395,90 @@ def test_stages_are_spans_on_the_installed_tracer(tmp_path):
               and par["ts"] <= e["ts"] <= par["ts"] + par["dur"]]
     assert len(inside) == -(-L // 64)
     assert tr.events(cat="stream")
+
+
+# ---------------------------------------------------------------------------
+# tree nodes are JAX's: exact containers, namedtuples, OrderedDict and
+# defaultdict; every other list, tuple or dict subclass is a leaf
+# ---------------------------------------------------------------------------
+
+class _TS(tuple):
+    pass
+
+
+class _DS(dict):
+    pass
+
+
+class _ArrayDS(dict):
+    """A dict subclass with an array form, so that as a leaf it has bytes."""
+
+    def __array__(self, dtype=None, copy=None):
+        return np.asarray([self[k] for k in sorted(self)], dtype=dtype)
+
+
+class _LS(list):
+    pass
+
+
+_NT = __import__("collections").namedtuple("_NT", "a b")
+
+
+def _subclass_trees():
+    from collections import defaultdict
+
+    dd = defaultdict(list)
+    dd["z"], dd["a"] = np.int32(3), np.float32(2.5)
+    return {
+        "torch.Size": {"x": torch.Size([3, 4])},
+        "tuple subclass": {"x": _TS((np.int32(1), np.int32(2)))},
+        "dict subclass": {"x": _ArrayDS(b=np.int32(7), a=np.int32(9))},
+        "namedtuple": {"x": _NT(np.int32(1), np.float32(2.0)), "y": [1.5]},
+        "OrderedDict": {"x": OrderedDict([("b", np.int32(1)),
+                                          ("a", np.int64(5))])},
+        "defaultdict": {"x": dd, "s": np.int64(4)},
+    }
+
+
+@pytest.mark.parametrize("name", list(_subclass_trees()))
+def test_subclass_trees_match_reference_and_round_trip(name):
+    from repro.ckpt.checkpoint import bytes_to_tree as j_bytes_to_tree
+    from repro.ckpt.checkpoint import tree_to_bytes as j_tree_to_bytes
+
+    tree = _subclass_trees()[name]
+    rj, mj = j_tree_to_bytes(tree)
+    rt, mt = tree_to_bytes(tree)
+    assert mt["leaves"] == mj["leaves"] and mt["nbytes"] == mj["nbytes"]
+    assert np.array_equal(rt, rj)
+    back, jback = bytes_to_tree(rt, mt, tree), j_bytes_to_tree(rj, mj, tree)
+    assert type(back) is type(jback)
+    for key in tree:
+        assert type(back[key]) is type(jback[key]), key
+        got = back[key].values() if isinstance(back[key], dict) else (
+            back[key] if isinstance(back[key], (list, tuple)) else [back[key]])
+        want = jback[key].values() if isinstance(jback[key], dict) else (
+            jback[key] if isinstance(jback[key], (list, tuple))
+            else [jback[key]])
+        for a, b in zip(got, want, strict=True):
+            assert np.asarray(a).dtype == np.asarray(b).dtype
+            assert np.array_equal(np.asarray(a), np.asarray(b))
+    if name == "defaultdict":
+        assert back["x"].default_factory is list
+        assert list(back["x"]) == ["a", "z"]
+
+
+def test_subclasses_are_leaves_as_in_jax():
+    import jax
+
+    from repro_torch.core.pytree import tree_flatten, tree_unflatten
+
+    tree = {"t": _TS((1, 2)), "d": _DS(a=1), "l": _LS([3]),
+            "s": torch.Size([2]), "n": _NT(4, [5, (6,)]),
+            "o": OrderedDict([("k", 7)])}
+    leaves, treedef = tree_flatten(tree)
+    jleaves = jax.tree_util.tree_leaves(tree)
+    assert len(leaves) == len(jleaves) == 8
+    assert all(a is b for a, b in zip(leaves, jleaves))
+    back = tree_unflatten(treedef, leaves)
+    assert back["t"] is tree["t"] and back["d"] is tree["d"]
+    assert type(back["n"]) is _NT and back["n"].b == [5, (6,)]

@@ -327,3 +327,81 @@ def test_cuda_service_runs_its_queue_on_the_card(cuda_device):
                               .result(timeout=120), cw[[1, 17]])
         st = svc.stats()["service"]
         assert st["requests"] == 9 and st["inflight_ops"] == 0
+
+
+# ---------------------------------------------------------------------------
+# gf_matmul's batched entry and the mesh backend on the card
+# ---------------------------------------------------------------------------
+
+def _batched_case(device, B, M, K, N, seed):
+    a = _rng(seed).integers(0, FERMAT_Q, (B, M, K))
+    b = _rng(seed + 1).integers(0, FERMAT_Q, (B, K, N))
+    a[0, 0, 0] = FERMAT_Q - 1  # 65536 == -1 in one batch's a only
+    b[B - 1, K - 1, N // 2] = FERMAT_Q - 1
+    return (torch.as_tensor(a.astype(np.int32), device=device),
+            torch.as_tensor(b.astype(np.int32), device=device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,M,K,N", [
+    (256, 9, 8, 1 << 18),            # the mesh combine at rs K=256 R=64
+    (1, 1, 1, 129), (3, 33, 300, 1000), (5, 9, 8, 7), (2, 64, 256, 4096)])
+def test_cuda_gf_matmul_batched_matches_plain(cuda_device, B, M, K, N):
+    from repro_torch.kernels import gf_matmul_batched, gf_matmul_batched_plain
+
+    a, b = _batched_case(cuda_device, B, M, K, N, seed=B + M + K)
+    before = gf_matmul_batched.launches
+    got = gf_matmul_batched(a, b)
+    torch.cuda.synchronize()
+    assert gf_matmul_batched.launches == before + 1
+    assert torch.equal(got.long(), gf_matmul_batched_plain(a, b))
+    if B * N <= 4096:
+        for z in range(B):
+            assert torch.equal(got[z].long(), gf_matmul_plain(a[z], b[z]))
+
+
+@pytest.mark.cuda
+def test_cuda_gf_matmul_batched_rejects_too_many_batches(cuda_device):
+    from repro_torch.kernels import gf_matmul_batched
+
+    a = torch.zeros((65536, 1, 1), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="65535"):
+        gf_matmul_batched(a, a)
+
+
+@pytest.mark.cuda
+def test_cuda_gf_matmul_still_launches_once_per_call(cuda_device):
+    from repro_torch.kernels import gf_matmul_batched
+
+    a = _cuda_rand(cuda_device, 256, 256, seed=3)
+    b = _cuda_rand(cuda_device, 256, 4096, seed=4)
+    before, batched = gf_matmul.launches, gf_matmul_batched.launches
+    got = gf_matmul(a, b)
+    torch.cuda.synchronize()
+    assert gf_matmul.launches == before + 1
+    assert gf_matmul_batched.launches == batched
+    assert torch.equal(got.long(), gf_matmul_plain(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["universal", "rs"])
+def test_cuda_mesh_codeword_matches_local(cuda_device, method):
+    from repro_torch.api import CodedSystem, CodeSpec
+    from repro_torch.kernels import gf_matmul_batched
+
+    spec = CodeSpec(kind="rs", K=256, R=64)
+    x = _rng(11).integers(0, FERMAT_Q, (256, 4096))
+    local = CodedSystem(spec, backend="local")
+    mesh = CodedSystem(spec, backend="mesh", method=method)
+    assert mesh.encode_plan.method == method
+    before = gf_matmul_batched.launches
+    cw = mesh.codeword(x)
+    stages = (1 if method == "universal"
+              else 2 * (mesh.encode_plan.tables.mesh_tables("rs").dl_inv_univ
+                        is not None))
+    assert gf_matmul_batched.launches == before + stages
+    assert np.array_equal(cw, local.codeword(x))
+    mesh.fail(list(range(0, 320, 5)))
+    assert np.array_equal(mesh.rebuild(cw), cw)
+    mesh.close()
+    local.close()
