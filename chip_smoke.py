@@ -4,15 +4,20 @@
     python3 chip_smoke.py
 
 1. prints the card (`nvidia-smi` name and power limit, torch's device name);
-2. builds both CUDA sources from `src/repro_torch/csrc` (one nvcc each, in
+2. builds the CUDA sources of `src/repro_torch/csrc` (one nvcc each, in
    parallel) into the ignored `src/repro_torch/_build/`, prints ptxas's
-   register and spill lines and the count of integer tensor-core (IMMA)
-   instructions in the gf_matmul library's SASS;
+   register and spill lines, the count of integer tensor-core (IMMA)
+   instructions in the gf_matmul library's SASS and of 64-bit
+   multiply-adds (IMAD.WIDE.U32) in gf_matmul_small's;
 3. kernel phase: holds each kernel bitwise against its plain PyTorch version
    at the main path's shapes and at edge shapes, and times kernel, plain
-   version and a one-call PyTorch yardstick with CUDA events; the same for
-   `gf_matmul_batched` (gf_matmul's batched entry) at the mesh combine's
-   shape, 256 x (9 x 8).(8 x 2^18), against `torch.bmm` in float64;
+   version and a one-call PyTorch yardstick with CUDA events (for the NTT
+   the (Z, Z) float64 DFT matrix, built on the card up to Z = 2^16); then
+   both designs of `gf_matmul_batched` (the CUDA-core `small` kernel and
+   the tensor-core kernel's batched entry, each forced) at edge shapes and
+   at a sweep of the mesh's combine shapes, 256 x (9 x 8).(8 x 2^18) among
+   them, timed in turns beside the bound, the plain version and
+   `torch.bmm` in float64, with the dispatch's pick beside the faster;
 4. main-path phase, four paths, each with the launch counts set to 0 just
    before and read just after: `CodedSystem(CodeSpec(kind="rs", K=256,
    R=64))` on the card with a seeded (256, 2^18) payload: codeword -> fail
@@ -71,8 +76,10 @@
 Each path of phases 4-10 is driven with the launch counts set to 0 just
 before it and read just after.
 
-The kernels: `gf_matmul` (int8 tensor cores, 8-bit limbs) and its batched
-entry `gf_matmul_batched` (the mesh's per-processor combine), and behind the
+The kernels: `gf_matmul` (int8 tensor cores, 8-bit limbs), `gf_matmul_batched`
+(the mesh's per-processor combine: on the main path the CUDA-core kernel of
+`csrc/gf_matmul_small.cu`; the tensor-core kernel's batched entry is its
+other design, off the main path), and behind the
 one `ntt` wrapper `ntt` (the register kernel, Z <= 64), `ntt_slab` (two
 register passes through shared memory, 64 < Z <= 4096, and the 4096-row
 blocks above) and `ntt_outer` (the leading stages of 4096 < Z <= 2^16).
@@ -128,7 +135,16 @@ INT32_MAD_PER_S = 67e12 / 4
 DESIGNS = {"gf_matmul": "imma-u8-limbs", "ntt": "ntt-registers",
            "ntt_slab": "ntt-two-register-passes",
            "ntt_outer": "ntt-leading-stages",
-           "gf_matmul_batched": "imma-u8-limbs-batched"}
+           "gf_matmul_batched": "cuda-cores-persistent-small-mk",
+           "gf_matmul_batched_imma": "imma-u8-limbs-batched"}
+# gf_matmul_batched's designs: its wrapper's names -> DESIGNS' names
+BATCHED_DESIGNS = {"small": DESIGNS["gf_matmul_batched"],
+                   "imma": DESIGNS["gf_matmul_batched_imma"]}
+# (B, M, K, N, main path): the mesh's combines at W = 2^18 (rs 16/4, rs
+# 64/16, rs 256/64 and rs 128/64), and deeper ones with b about 2 GB
+BATCHED_SWEEP = [(16, 3, 2, MAIN_W, False), (64, 5, 4, MAIN_W, False),
+                 (256, 9, 8, MAIN_W, True), (128, 9, 8, MAIN_W, False),
+                 (1024, 17, 16, 1 << 15, False), (4096, 33, 32, 1 << 12, False)]
 SLAB_MAX_Z = 4096
 
 
@@ -209,10 +225,12 @@ def max_abs_err(got, want) -> int:
     return int((got.long() - want.long()).abs().max().item()) if got.numel() else 0
 
 
-def dft_matrix(Z: int, inverse: bool, dev):
+def dft_matrix(Z: int, inverse: bool, dev, rows: int = 1024):
     """The (Z, Z) float64 matrix T with ntt(x, inverse) == T @ x mod q:
     forward T[k, j] = root^(j rev(k)) (the permuted DFT, transposed);
-    inverse T[j, k] = Z^-1 root^-(j rev(k))."""
+    inverse T[j, k] = Z^-1 root^-(j rev(k)).  Built on the card in chunks of
+    `rows` rows straight into float64 (34.4 GB at Z = 2^16; an int64
+    index of the whole would double that)."""
     import torch
 
     from repro_torch.kernels.ntt import roots
@@ -222,11 +240,16 @@ def dft_matrix(Z: int, inverse: bool, dev):
     for _ in range(Z):
         pw.append(acc)
         acc = acc * root % Q
+    pw = torch.as_tensor(pw, dtype=torch.float64, device=dev)
     H = Z.bit_length() - 1
     k = torch.arange(Z, device=dev)
     rev = sum(((k >> b) & 1) << (H - 1 - b) for b in range(H)) if H else k
-    t = torch.as_tensor(pw, device=dev)[k[:, None] * rev[None, :] % Z]
-    return (t if inverse else t.T).double().contiguous()
+    t = torch.empty((Z, Z), dtype=torch.float64, device=dev)
+    for r0 in range(0, Z, rows):
+        r = k[r0:r0 + rows]
+        idx = r[:, None] * rev[None, :] if inverse else rev[r, None] * k[None, :]
+        t[r0:r0 + rows] = pw[idx % Z]
+    return t
 
 
 def outer_only(x, inverse: bool):
@@ -349,25 +372,26 @@ def kernel_phase(gen):
         names = ntt_names(Z)
         got = ntt(x, inverse=inv)
         check(f"ntt {what}", got, ntt_plain(x, inverse=inv), names)
-        library = None
-        if Z <= DFT_BIG_K:  # the (Z, Z) float64 matrix: 512 MiB at 8192
-            dt = dft_matrix(Z, inv, dev)
+        torch.cuda.reset_peak_memory_stats()
+        dt = dft_matrix(Z, inv, dev)  # 34.4 GB at Z = 2^16
 
-            def library(x=x, dt=dt):
-                return torch.remainder(dt @ x.double(), Q)  # exact: < Z 2^32
+        def library(x=x, dt=dt):
+            return torch.remainder(dt @ x.double(), Q)  # exact: < Z 2^32 < 2^53
 
-            check(f"library yardstick ntt {what}", library(), got)
+        check(f"library yardstick ntt {what}", library(), got)
         H = Z.bit_length() - 1
         ops = 3 * (Z // 2 * H * C) + (Z * C if inv else 0)  # mul, add, sub; scale
         row = dict(name=names[0], what=what, main=main, nbytes=8 * Z * C,
                    ops=ops, rate=INT32_MAD_PER_S, mads=None,
                    k_ms=time_ms(lambda: ntt(x, inverse=inv), 30),
                    p_ms=time_ms(lambda: ntt_plain(x, inverse=inv), 3),
-                   l_ms=time_ms(library, 3) if library else None)
+                   l_ms=time_ms(library, 3),
+                   library_peak_gb=torch.cuda.max_memory_allocated() / 1e9)
         if Z > SLAB_MAX_Z:
             row["outer_ms"] = time_ms(lambda: outer_only(x, inv), 30)
         rows.append(row)
-        del x, got, library
+        del x, got, library, dt
+        torch.cuda.empty_cache()
 
     summary = {}
     for r in rows:
@@ -381,6 +405,8 @@ def kernel_phase(gen):
         if r["mads"] is not None:  # the same work on the CUDA cores' INT32 lanes
             line["int32_bound_ms"] = bound(r["nbytes"], r["mads"],
                                            INT32_MAD_PER_S)[0]
+        if "library_peak_gb" in r:  # the card's peak while the yardstick ran
+            line["library_peak_gb"] = r["library_peak_gb"]
         if "outer_ms" in r:  # ntt_outer alone: one read and one write
             line["outer_ms"] = r["outer_ms"]
             line["outer_bound_share"] = b_ms / r["outer_ms"]
@@ -445,6 +471,8 @@ def reset_counts() -> None:
 
     gf_matmul.launches = 0
     gf_matmul_batched.launches = 0
+    gf_matmul_batched.launches_by_design = dict.fromkeys(
+        gf_matmul_batched.launches_by_design, 0)
     ntt.launches = 0
     ntt.launches_by_kernel = dict.fromkeys(ntt.launches_by_kernel, 0)
 
@@ -452,11 +480,14 @@ def reset_counts() -> None:
 def read_counts() -> dict:
     from repro_torch.kernels import gf_matmul, gf_matmul_batched, ntt
 
+    by_design = gf_matmul_batched.launches_by_design
+    need(gf_matmul_batched.launches == sum(by_design.values()), by_design)
     return {"gf_matmul": gf_matmul.launches,
             "ntt": ntt.launches_by_kernel["registers"],
             "ntt_slab": ntt.launches_by_kernel["slab"],
             "ntt_outer": ntt.launches_by_kernel["outer"],
-            "gf_matmul_batched": gf_matmul_batched.launches}
+            "gf_matmul_batched": by_design["small"],
+            "gf_matmul_batched_imma": by_design["imma"]}
 
 
 def main_path_phase():
@@ -536,33 +567,60 @@ def main_path_phase():
 # ---------------------------------------------------------------------------
 
 def batched_kernel_phase(gen) -> dict:
-    """`gf_matmul_batched` bitwise against its plain version at the mesh
-    combine's shape and at edge shapes; the main shape timed beside the
-    plain version and the `bmm` yardstick.  Returns its summary entry."""
+    """`gf_matmul_batched`'s two designs, each forced, bitwise against the
+    plain version at edge shapes and at the sweep's shapes; each design
+    timed at every sweep shape beside its bound, the plain version and the
+    `bmm` yardstick; the dispatch's choice beside the faster design.
+    Returns the summary entry of the design the main path runs ("small",
+    at the mesh combine's shape)."""
+    import ctypes
+
     import torch
 
-    from repro_torch.kernels import gf_matmul_batched, gf_matmul_batched_plain
+    from repro_torch.kernels import build, gf_matmul_batched, gf_matmul_batched_plain
+    from repro_torch.kernels.gf_matmul import (_SMALL_CROSSOVER, _SMALL_MAX_K,
+                                               _SMALL_MAX_M, _batched_design)
 
     dev = torch.device("cuda")
-    worst = 0
+    worst = dict.fromkeys(BATCHED_DESIGNS, 0)
+    config = build.entry("gf_matmul_small", "gf_matmul_small_config",
+                         [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
+                         + [ctypes.POINTER(ctypes.c_int)])
 
     def rnd(*shape):
         return torch.randint(0, Q, shape, generator=gen, device=dev,
                              dtype=torch.int32)
 
-    def check(name, a, b):
-        nonlocal worst
-        got = gf_matmul_batched(a, b)
-        err = max_abs_err(got, gf_matmul_batched_plain(a, b))
-        worst = max(worst, err)
-        print(json.dumps({"check": f"gf_matmul_batched {name}",
-                          "shape": list(got.shape), "max_abs_err": err,
-                          "tolerance": 0}))
-        need(err == 0, f"gf_matmul_batched {name}: results differ ({err})")
-        return got
+    def takes(design, M, K):
+        return design == "imma" or (M <= _SMALL_MAX_M and K <= _SMALL_MAX_K)
 
-    # edge shapes: B = M = K = 1 with N just past one slab and a = 65536;
-    # per-batch 65536 flags; M past one 32-row tile; K past one chunk
+    def check(name, a, b, want=None):
+        """Both designs (where they take the shape) against the plain
+        version."""
+        B, M, K = a.shape
+        if want is None:
+            want = gf_matmul_batched_plain(a, b)
+        for design in BATCHED_DESIGNS:
+            if not takes(design, M, K):
+                continue
+            before = gf_matmul_batched.launches_by_design[design]
+            got = gf_matmul_batched(a, b, _design=design)
+            torch.cuda.synchronize()
+            need(gf_matmul_batched.launches_by_design[design] == before + 1,
+                 f"{name}: the {design} design did not launch")
+            err = max_abs_err(got, want)
+            worst[design] = max(worst[design], err)
+            print(json.dumps({"check": f"gf_matmul_batched {name}",
+                              "design": BATCHED_DESIGNS[design],
+                              "shape": list(got.shape), "max_abs_err": err,
+                              "tolerance": 0}))
+            need(err == 0, f"gf_matmul_batched {name} ({design}): results "
+                 f"differ ({err})")
+
+    # -- edge shapes: B = M = K = 1 with a = 65536; per-batch 65536 flags; M
+    # past one 32-row tile and K past one chunk (imma only); N % 4 in
+    # {1, 2, 3} with a ragged last tile; all-65536 operands; K = 0; a base
+    # of b that is not 16-byte aligned (the small design's scalar path) --
     a = torch.full((1, 1, 1), Q - 1, device=dev, dtype=torch.int32)
     check("edge B=1 M=1 K=1 N=129, a = 65536", a, rnd(1, 1, 129))
     a, b = rnd(3, 33, 300), rnd(3, 300, 1000)
@@ -570,33 +628,91 @@ def batched_kernel_phase(gen) -> dict:
     b[2, 299, 999] = Q - 1
     check("edge (3; 33x300 . 300x1000), one 65536 in one batch", a, b)
     check("edge (5; 9x8 . 8x7)", rnd(5, 9, 8), rnd(5, 8, 7))
+    for N in (4097, 4098, 4099):
+        check(f"edge (7; 9x8 . 8x{N}), N % 4 = {N % 4}", rnd(7, 9, 8),
+              rnd(7, 8, N))
+    check("edge M=K=1 (3; 1x1 . 1x5000)", rnd(3, 1, 1), rnd(3, 1, 5000))
+    check("edge K=0 (2; 4x0 . 0x100)", rnd(2, 4, 0), rnd(2, 0, 100))
+    check("edge (2; 64x32 . 32x1000), the small design's largest a",
+          rnd(2, 64, 32), rnd(2, 32, 1000))
+    for B, M, K, N in [(4, 33, 32, 1000), (7, 9, 8, 4096), (2, 64, 256, 4096)]:
+        full = torch.full((B, M, K), Q - 1, device=dev, dtype=torch.int32)
+        fb = torch.full((B, K, N), Q - 1, device=dev, dtype=torch.int32)
+        check(f"all-65536 ({B}; {M}x{K} . {K}x{N})", full, fb)
+    flat = rnd(3 * 8 * 4096 + 1)
+    check("unaligned base of b (3; 9x8 . 8x4096)", rnd(3, 9, 8),
+          flat[1:].view(3, 8, 4096))
 
-    # the mesh combine at rs K=256 R=64: [coef; corr] (9 x 8) . buf (8 x W)
-    B, M, K, N = 256, 9, 8, MAIN_W
-    a, b = rnd(B, M, K), rnd(B, K, N)
-    got = check("mesh combine (256; 9x8 . 8x2^18)", a, b)
+    # -- the sweep: the mesh's combine shapes at N = 2^18, two deeper ones
+    # with b about 2 GB; each design timed, checked first --------------------
+    sweep = []
+    for B, M, K, N, main in BATCHED_SWEEP:
+        name = f"({B}; {M}x{K} . {K}x{N})"
+        a, b = rnd(B, M, K), rnd(B, K, N)
+        want = gf_matmul_batched_plain(a, b)
+        check(f"sweep {name}", a, b, want)
 
-    def library(a=a, b=b):  # exact: 8 products < 2^35 < 2^53
-        return torch.remainder(torch.bmm(a.double(), b.double()), Q)
+        def library(a=a, b=b):  # exact: K products < 2^37 < 2^53
+            return torch.remainder(torch.bmm(a.double(), b.double()), Q)
 
-    lib_err = max_abs_err(library().long(), got)
-    need(lib_err == 0, f"bmm yardstick differs ({lib_err})")
-    nbytes = 4 * (B * M * K + B * K * N + B * M * N)
-    ops = sum(imma_macs(a[z], b[z]) for z in range(B))
-    b_ms, b_by = bound(nbytes, ops, INT8_MAC_PER_S)
-    k_ms = time_ms(lambda: gf_matmul_batched(a, b), 20)
-    p_ms = time_ms(lambda: gf_matmul_batched_plain(a, b), 3)
-    l_ms = time_ms(library, 5)
-    print(json.dumps({
-        "kernel": "gf_matmul_batched", "design": DESIGNS["gf_matmul_batched"],
-        "shape": "mesh combine (256; 9x8 . 8x2^18)", "main_path_shape": True,
-        "bytes": nbytes, "ops": ops, "kernel_ms": k_ms, "plain_ms": p_ms,
-        "library_ms": l_ms, "bound_ms": b_ms, "bound_by": b_by,
-        "bound_share": b_ms / k_ms}))
-    del a, b, got  # their blocks stay cached for the phases after
-    return {"shapes": ["mesh combine (256; 9x8 . 8x2^18)"], "ms": k_ms,
-            "plain_ms": p_ms, "library_ms": l_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "max_abs_err": worst}
+        lib_err = max_abs_err(library().long(), want)
+        need(lib_err == 0, f"bmm yardstick {name} differs ({lib_err})")
+        del want
+        info = (ctypes.c_int * 8)()  # c's alignment: a fresh output's, as b's
+        build.check(config(b.data_ptr(), b.data_ptr(), B, M, N, K, info),
+                    "gf_matmul_small_config")
+        nbytes = 4 * (B * M * K + B * K * N + B * M * N)
+        reps = 20
+        row = {"shape": name, "main_path_shape": main, "bytes": nbytes,
+               "dispatch": _batched_design(M, K),
+               "plain_ms": time_ms(lambda: gf_matmul_batched_plain(a, b), 3),
+               "library_ms": time_ms(library, 5), "designs": {},
+               "small_config": dict(zip(
+                   ("tile_columns", "row_chunks", "rows_a_chunk", "smem_bytes",
+                    "blocks_per_sm", "grid", "vec16", "sms"), info))}
+        for design in ("small", "imma", "imma", "small"):  # in turns
+            if takes(design, M, K):
+                row["designs"].setdefault(design, []).append(time_ms(
+                    lambda d=design: gf_matmul_batched(a, b, _design=d), reps))
+        for design in list(row["designs"]):
+            if design == "small":  # 64-bit multiply-adds on the INT32 lanes
+                ops, rate = B * M * K * N, INT32_MAD_PER_S
+            else:  # u8 limb products on the tensor cores
+                ops = sum(imma_macs(a[z], b[z]) for z in range(B))
+                rate = INT8_MAC_PER_S
+            b_ms, b_by = bound(nbytes, ops, rate)
+            ms = row["designs"][design]
+            mean = sum(ms) / len(ms)
+            row["designs"][design] = {
+                "design": BATCHED_DESIGNS[design], "kernel_ms": ms,
+                "mean_ms": mean, "ops": ops, "bound_ms": b_ms,
+                "bound_by": b_by, "bound_share": b_ms / mean}
+        row["faster"] = min(row["designs"],
+                            key=lambda d: row["designs"][d]["mean_ms"])
+        row["dispatch_takes_faster"] = row["faster"] == row["dispatch"]
+        print(json.dumps({"kernel": "gf_matmul_batched", **row}))
+        sweep.append(row)
+        del a, b, library
+    print(json.dumps({"batched_dispatch": {
+        "rule": f"small while M <= {_SMALL_MAX_M}, K <= {_SMALL_MAX_K} and "
+                f"M K <= {_SMALL_CROSSOVER} (M + K), else imma",
+        "crossover": _SMALL_CROSSOVER,
+        "picks": {r["shape"]: r["dispatch"] for r in sweep},
+        "faster": {r["shape"]: r["faster"] for r in sweep}}}))
+    torch.cuda.empty_cache()
+
+    main = next(r for r in sweep if r["main_path_shape"])
+    need(main["dispatch"] == "small", "the mesh combine's shape does not "
+         "take the small design")
+    small = main["designs"]["small"]
+    return {"shapes": [f"mesh combine {main['shape']}"], "ms": small["mean_ms"],
+            "plain_ms": main["plain_ms"], "library_ms": main["library_ms"],
+            "bound_ms": small["bound_ms"], "bound_by": small["bound_by"],
+            "max_abs_err": worst["small"],
+            "designs": {d: {"ms": v["mean_ms"],
+                            "bound_share": v["bound_share"],
+                            "max_abs_err": worst[d]}
+                        for d, v in main["designs"].items()}}
 
 
 class PlainCalls:
@@ -701,12 +817,14 @@ def mesh_phase() -> dict:
     print(json.dumps({"op": "plan_encode", "backend": "mesh", "wall_ms":
                       (time.perf_counter() - t0) * 1e3}))
     built(system, "encode")
-    one_stage = {"gf_matmul_batched": 1, "gf_matmul": 0, "ntt": 0}
+    # one combine launch a universal stage, and it runs the small design
+    one_stage = {"gf_matmul_batched": 1, "gf_matmul_batched_imma": 0,
+                 "gf_matmul": 0, "ntt": 0}
     cw = op(system, "codeword", lambda: system.codeword(x), ref_cw, one_stage)
     system.fail(dead.tolist())
     built(system, "decode")
     op(system, "read", lambda: system.read(lost), x,
-       {"gf_matmul_batched": 0, "gf_matmul": 1})
+       {"gf_matmul_batched": 0, "gf_matmul_batched_imma": 0, "gf_matmul": 1})
     batches = system.decode_plan.tables.batches()
     op(system, "rebuild", lambda: system.rebuild(lost), cw,
        dict(one_stage, gf_matmul_batched=len(batches)))
@@ -734,7 +852,8 @@ def mesh_phase() -> dict:
     built(system, "encode")
     op(system, f"encode dft K={MESH_DFT_K} W={DFT_W}",
        lambda: system.encode(xd), want,
-       {"gf_matmul_batched": 0, "gf_matmul": 0, "ntt": 0})
+       {"gf_matmul_batched": 0, "gf_matmul_batched_imma": 0, "gf_matmul": 0,
+        "ntt": 0})
     system.close()
 
     # a commute=True plan: the generic IR lowering at rs 256/64
@@ -1462,6 +1581,9 @@ def main() -> int:
     imma = sass_count(build, "gf_matmul", "IMMA")
     print(json.dumps({"sass": "gf_matmul", "imma_instructions": imma}))
     need(imma > 0, "no integer tensor-core instruction in gf_matmul's SASS")
+    wide = sass_count(build, "gf_matmul_small", r"IMAD\.WIDE\.U32")
+    print(json.dumps({"sass": "gf_matmul_small", "imad_wide_u32": wide}))
+    need(wide > 0, "no 64-bit multiply-add in gf_matmul_small's SASS")
 
     print(json.dumps({"peaks": {
         "hbm_bytes_per_s": HBM_BYTES_PER_S, "int8_mac_per_s": INT8_MAC_PER_S,
@@ -1492,7 +1614,7 @@ def main() -> int:
                             "src/repro/kernels/ntt.py:80"),
                "ntt_outer": ("src/repro_torch/csrc/ntt.cu",
                              "src/repro/kernels/ntt.py:80"),
-               "gf_matmul_batched": ("src/repro_torch/csrc/gf_matmul.cu",
+               "gf_matmul_batched": ("src/repro_torch/csrc/gf_matmul_small.cu",
                                      "src/repro/kernels/gf_matmul.py:53")}
     kernels = []
     for name, (source, replaces) in sources.items():
@@ -1506,6 +1628,8 @@ def main() -> int:
                         "library_ms": s["library_ms"], "design": DESIGNS[name],
                         "bound_share": s["bound_ms"] / s["ms"],
                         "shapes": s["shapes"]})
+        if "designs" in s:  # gf_matmul_batched: both designs, one call
+            kernels[-1]["designs"] = s["designs"]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

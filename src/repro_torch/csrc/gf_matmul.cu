@@ -65,11 +65,10 @@
 // one launch, batch index on blockIdx.y (B <= 65535) with 64-bit batch
 // strides; the 2-D entry is the same kernel body without the batch offsets
 // (a template flag), so its code and its times are those it had before.  It
-// serves the mesh backend's per-processor combine: at rs K=256 R=64 that
-// is B = 256 products (9 x 8) . (8 x 2^18), each a short, wide product the
-// slab design takes as it is (one M-tile, one k-step; rows past M read as
-// zero and are not written, the K pad is 0).  That shape moves 4.6 GB of b
-// and c: bound by bytes (1.36 ms at 3.35 TB/s, NVIDIA H100 80GB HBM3).
+// is the mesh combine's design for large M K only: the combine's small
+// shapes, (9 x 8) . (8 x 2^18) at rs K=256 R=64 among them, run on the CUDA
+// cores in csrc/gf_matmul_small.cu, since this slab design pays a block's
+// set-up (one M-tile, one k-step, rows past M zero) for every 128 columns.
 //
 // Layouts: al (3, M, Kp) uint8 limb planes of a; ahi (M,) uint8 row flags;
 // b (K, N) and c (M, N) row-major int32 holding values in [0, q), read as

@@ -7,10 +7,14 @@ only plain torch work the wrapper adds.  A CUDA tensor launches the kernel on
 the current stream (no synchronise) or raises; a CPU tensor runs the plain
 version `ref.gf_matmul_plain`.  `gf_matmul.launches` counts kernel launches.
 
-`gf_matmul_batched` is the same kernel's batched entry: B independent
-products in one launch (the mesh backend's per-processor combine); its
-plain version is `ref.gf_matmul_batched_plain`, its count
-`gf_matmul_batched.launches`.
+`gf_matmul_batched` runs B independent products in one launch (the mesh
+backend's per-processor combine) in one of two designs, chosen from (M, K)
+by `_batched_design`: "small", the CUDA-core kernel of
+`csrc/gf_matmul_small.cu` (persistent blocks, pipelined staging of b) for
+small M and K, and "imma", the tensor-core kernel's batched entry, for
+the rest.  Its plain version is `ref.gf_matmul_batched_plain`; its count
+`gf_matmul_batched.launches` counts both designs, and
+`gf_matmul_batched.launches_by_design` each.
 """
 from __future__ import annotations
 
@@ -26,6 +30,17 @@ _INT_MAX = (1 << 31) - 1
 _MAX_K = 1 << 30  # keeps the kernel's int k indices clear of overflow
 _K_ALIGN = 16  # a's limb planes are staged in 16-byte loads
 _MAX_BATCH = 65535  # the batch index is the grid's y
+# the CUDA-core design's limits: u64 sums of K <= 32 products stay exact,
+# a[z] fits its shared memory
+_SMALL_MAX_M = 64
+_SMALL_MAX_K = 32
+# It is chosen while its M K multiply-adds a column stay below the time of
+# the column's 4 (M + K) bytes: at 16.75 T INT32 multiply-adds/s against
+# 3.35 TB/s, M K <= 20 (M + K) at the full rate, 10 (M + K) at half.  The
+# card's sweep (chip_smoke.py) keeps 10: the small design is the faster up
+# to (17 x 16) (ratio 8.2) and ties the tensor cores at (33 x 32) (16.2).
+_SMALL_CROSSOVER = 10
+_DESIGNS = ("small", "imma")
 
 
 @functools.lru_cache(maxsize=None)
@@ -42,6 +57,24 @@ def _batched_launcher():
     return build.entry("gf_matmul", "gf_matmul_batched_launch",
                        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
                        + [ctypes.c_void_p])
+
+
+@functools.lru_cache(maxsize=None)
+def _small_launcher():
+    # gf_matmul_small_launch(a, b, c, B, M, N, K, stream)
+    return build.entry("gf_matmul_small", "gf_matmul_small_launch",
+                       [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+                       + [ctypes.c_void_p])
+
+
+def _batched_design(M: int, K: int) -> str:
+    """The design `gf_matmul_batched` runs for (M x K) . (K x N) products:
+    "small" (CUDA cores, bound by bytes) while M <= 64, K <= 32 and
+    M K <= _SMALL_CROSSOVER (M + K), else "imma" (tensor cores)."""
+    if (M <= _SMALL_MAX_M and K <= _SMALL_MAX_K
+            and M * K <= _SMALL_CROSSOVER * (M + K)):
+        return "small"
+    return "imma"
 
 
 def a_limbs(a: torch.Tensor) -> torch.Tensor:
@@ -98,9 +131,14 @@ def gf_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 gf_matmul.launches = 0
 
 
-def gf_matmul_batched(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def gf_matmul_batched(a: torch.Tensor, b: torch.Tensor, *,
+                      _design: str | None = None) -> torch.Tensor:
     """(a[z] @ b[z]) mod 65537 for every z: a (B, M, K), b (B, K, N) int32
     with values in [0, q) on one device -> (B, M, N) int32, in one launch."""
+    # _design forces one design for the kernel checks (tests, chip_smoke.py)
+    if _design is not None and _design not in _DESIGNS:
+        raise ValueError(f"gf_matmul_batched: unknown design {_design!r}, "
+                         f"expected one of {_DESIGNS}")
     if a.dim() != 3 or b.dim() != 3 or a.shape[0] != b.shape[0] \
             or a.shape[2] != b.shape[1]:
         raise ValueError(f"gf_matmul_batched needs (B, M, K) x (B, K, N), "
@@ -125,18 +163,30 @@ def gf_matmul_batched(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if max(M, N) > _INT_MAX or K > _MAX_K:
         raise ValueError(f"gf_matmul_batched kernel takes M, N < 2^31 and "
                          f"K <= 2^30, got M={M}, K={K}, N={N}")
+    design = _design or _batched_design(M, K)
+    if design == "small" and (M > _SMALL_MAX_M or K > _SMALL_MAX_K):
+        raise ValueError(f"gf_matmul_batched's small design takes M <= "
+                         f"{_SMALL_MAX_M} and K <= {_SMALL_MAX_K}, got M={M}, "
+                         f"K={K}")
     out = torch.empty((B, M, N), dtype=torch.int32, device=a.device)
     if out.numel() == 0:
         return out
     with torch.cuda.device(a.device):
-        al = a_limbs(a)
-        ahi = al[:, 2].amax(dim=2)  # (B, M): rows holding a 65536
         stream = torch.cuda.current_stream().cuda_stream
-        build.check(_batched_launcher()(
-            al.data_ptr(), ahi.data_ptr(), b.data_ptr(), out.data_ptr(),
-            B, M, N, K, al.shape[-1], stream), "gf_matmul_batched")
+        if design == "small":
+            err = _small_launcher()(a.data_ptr(), b.data_ptr(),
+                                    out.data_ptr(), B, M, N, K, stream)
+        else:
+            al = a_limbs(a)
+            ahi = al[:, 2].amax(dim=2)  # (B, M): rows holding a 65536
+            err = _batched_launcher()(
+                al.data_ptr(), ahi.data_ptr(), b.data_ptr(), out.data_ptr(),
+                B, M, N, K, al.shape[-1], stream)
+        build.check(err, f"gf_matmul_batched ({design})")
     gf_matmul_batched.launches += 1
+    gf_matmul_batched.launches_by_design[design] += 1
     return out
 
 
 gf_matmul_batched.launches = 0
+gf_matmul_batched.launches_by_design = dict.fromkeys(_DESIGNS, 0)

@@ -336,8 +336,9 @@ def test_cuda_service_runs_its_queue_on_the_card(cuda_device):
 def _batched_case(device, B, M, K, N, seed):
     a = _rng(seed).integers(0, FERMAT_Q, (B, M, K))
     b = _rng(seed + 1).integers(0, FERMAT_Q, (B, K, N))
-    a[0, 0, 0] = FERMAT_Q - 1  # 65536 == -1 in one batch's a only
-    b[B - 1, K - 1, N // 2] = FERMAT_Q - 1
+    if K:
+        a[0, 0, 0] = FERMAT_Q - 1  # 65536 == -1 in one batch's a only
+        b[B - 1, K - 1, N // 2] = FERMAT_Q - 1
     return (torch.as_tensor(a.astype(np.int32), device=device),
             torch.as_tensor(b.astype(np.int32), device=device))
 
@@ -358,6 +359,77 @@ def test_cuda_gf_matmul_batched_matches_plain(cuda_device, B, M, K, N):
     if B * N <= 4096:
         for z in range(B):
             assert torch.equal(got[z].long(), gf_matmul_plain(a[z], b[z]))
+
+
+# (B, M, K, N): the mesh's combines (rs 16/4, 64/16, 128/64 and 256/64 at
+# a narrower W), N % 4 in {1, 2, 3} with a ragged last tile, M = K = 1,
+# K = 0, the small design's largest a, and the sweep's deeper shapes
+_BATCHED_DESIGN_CASES = [
+    (16, 3, 2, 4096), (64, 5, 4, 4096), (128, 9, 8, 4096), (256, 9, 8, 1 << 14),
+    (7, 9, 8, 4097), (7, 9, 8, 4098), (7, 9, 8, 4099), (3, 1, 1, 5000),
+    (2, 4, 0, 100), (2, 64, 32, 1000), (64, 17, 16, 2048), (32, 33, 32, 1027)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("design", ["small", "imma"])
+@pytest.mark.parametrize("B,M,K,N", _BATCHED_DESIGN_CASES)
+def test_cuda_gf_matmul_batched_designs_match_plain(cuda_device, design, B, M,
+                                                    K, N):
+    from repro_torch.kernels import gf_matmul_batched, gf_matmul_batched_plain
+
+    a, b = _batched_case(cuda_device, B, M, K, N, seed=3 * B + M + K)
+    before = dict(gf_matmul_batched.launches_by_design)
+    total = gf_matmul_batched.launches
+    got = gf_matmul_batched(a, b, _design=design)
+    torch.cuda.synchronize()
+    assert gf_matmul_batched.launches == total + 1
+    assert gf_matmul_batched.launches_by_design == dict(
+        before, **{design: before[design] + 1})
+    assert torch.equal(got.long(), gf_matmul_batched_plain(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("design", ["small", "imma"])
+@pytest.mark.parametrize("B,M,K,N,offset", [(3, 9, 8, 4096, 1), (2, 9, 8, 1001, 3),
+                                            (4, 33, 32, 1000, 0)])
+def test_cuda_gf_matmul_batched_designs_all_65536_and_unaligned(
+        cuda_device, design, B, M, K, N, offset):
+    """All-65536 operands (the largest sums), and a base of b off 16 bytes
+    (the small design's scalar path)."""
+    from repro_torch.kernels import gf_matmul_batched, gf_matmul_batched_plain
+
+    a = torch.full((B, M, K), FERMAT_Q - 1, dtype=torch.int32, device=cuda_device)
+    flat = torch.full((B * K * N + offset,), FERMAT_Q - 1, dtype=torch.int32,
+                      device=cuda_device)
+    b = flat[offset:].view(B, K, N)
+    got = gf_matmul_batched(a, b, _design=design)
+    assert torch.equal(got.long(), gf_matmul_batched_plain(a, b))
+    a2, b2 = _batched_case(cuda_device, B, M, K, N, seed=N)
+    flat[offset:] = b2.reshape(-1)
+    assert torch.equal(gf_matmul_batched(a2, b, _design=design).long(),
+                       gf_matmul_batched_plain(a2, b))
+
+
+@pytest.mark.cuda
+def test_cuda_mesh_combine_shape_takes_the_small_design(cuda_device):
+    from repro_torch.kernels import gf_matmul_batched, gf_matmul_batched_plain
+
+    a, b = _batched_case(cuda_device, 256, 9, 8, 4096, seed=5)
+    before = dict(gf_matmul_batched.launches_by_design)
+    got = gf_matmul_batched(a, b)
+    torch.cuda.synchronize()
+    assert gf_matmul_batched.launches_by_design == dict(
+        before, small=before["small"] + 1)
+    assert torch.equal(got.long(), gf_matmul_batched_plain(a, b))
+
+
+@pytest.mark.cuda
+def test_cuda_gf_matmul_batched_small_refuses_deep_k(cuda_device):
+    from repro_torch.kernels import gf_matmul_batched
+
+    a, b = _batched_case(cuda_device, 2, 9, 33, 64, seed=6)
+    with pytest.raises(ValueError, match="small design"):
+        gf_matmul_batched(a, b, _design="small")
 
 
 @pytest.mark.cuda

@@ -243,6 +243,6 @@ def test_kernel_build_needs_nvcc_and_keys_on_the_source(monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build.nvcc()
     paths = {build.library_path(n) for n in build.SOURCES}
-    assert len(paths) == 2
+    assert len(paths) == len(build.SOURCES) == 3
     assert all(p.parent == build.BUILD_DIR and p.suffix == ".so" for p in paths)
     assert build.library_path("ntt") == build.library_path("ntt")
