@@ -17,10 +17,11 @@
 //
 // Bound on this card: each element is read once and written once and takes
 // log2 Z butterflies of a few integer operations, so one pass is bound by
-// memory bytes: at the rs codeword's (64, 2^20), 536.9 MB at 3.35 TB/s =
-// 0.160 ms; at the dft encode's (4096, 2^12), 134.2 MB = 0.040 ms.
+// memory bytes, 8 Z C over 3.35 TB/s: at the rs codeword's (64, 2^20),
+// 536.9 MB = 0.160 ms; at the dft encode's (4096, 2^12), 134.2 MB = 0.040
+// ms; at (8192, 2^12) 0.080 ms and at (65536, 2^10) 0.160 ms.
 //
-// Three kernels; the wrapper picks by Z.
+// Four kernels; the wrapper picks by Z.
 //
 // ntt_regs (Z <= 64, the rs codeword's Z = 64): each thread owns one column
 // and holds all Z values in registers.  Row r of column c is x[r C + c], so
@@ -76,13 +77,64 @@
 // stages).  Two passes over device memory, so at best half the one-pass
 // bound.  Both kernels may run in place (x == out): every thread reads all of
 // its values before it writes any, and the slab's blocks own disjoint
-// columns.
+// columns.  The main path does not take this route: only
+// `ntt(..., _route="two-pass")` runs it, as a check and a yardstick.
+//
+// ntt_cluster (4096 < Z <= 2^16, the main path): the same split in one pass,
+// on a thread-block cluster (Hopper) of Z0 = Z / R blocks that each hold R
+// rows.  A column at Z = 2^16 is 256 KB, more than one block's 227 KB of
+// shared memory; the cluster's distributed shared memory holds it.  The
+// block layout (`with_layout`): R = 2048 rows of 8 columns up to Z = 2^15
+// (256 threads, 66,560 bytes: two blocks an SM, so one block's loads and
+// stores overlap the other's arithmetic; it ran faster there than 4096
+// rows) and R = 4096 rows of 8 columns at Z = 2^16 (512 threads, 133,120
+// bytes, one block an SM), where 2048 rows would need 32 blocks and a
+// cluster holds at most 16.  Four columns a block would let two 4096-row
+// blocks share an SM but leave each warp half of every 32-byte sector.
+// Block rank a owns rows [a R, (a + 1) R) of its cluster's columns in
+// shared memory, in the slab's padded layout with Z1 = R / 64, Z2 = 64; the
+// clusters tile the columns.  Forward: each block takes R / Z0 of the
+// sequences j; thread (p, c) loads the Z0 values x[j + a R] of each of its
+// 64 / Z0 sequences (64 loads in flight, consecutive threads on consecutive
+// columns), runs the Z0-point DIF and the twist root^(j rev(a)) in
+// registers and stores value a into rank a's shared memory
+// (`map_shared_rank`; one warp writes 32 consecutive words of one peer).
+// The blocks take the ranks in turns starting from their own (a local
+// store), so at any time each peer receives from one block.  After one
+// cluster barrier each block runs the slab's pass A in place on its own
+// rows (thread p owns sequences p + i Z1), a block barrier, pass B, and
+// stores.  The inverse runs the steps backwards: pass B's inverse stages
+// and twist from device memory, pass A's inverse stages in shared memory,
+// a cluster barrier, then each block reads its sequences' Z0 values from
+// the ranks (in the same turns), applies the inverse twist with Z^-1 folded
+// in and the Z0-point inverse stages, and stores.  So each element moves
+// once from and once to device memory, and (Z0 - 1) / Z0 of them cross SMs
+// once.  The cluster barrier is split (`barrier.cluster` arrive, then wait)
+// where that hides it: the forward arrives at entry and waits only before
+// its first store into a peer (a peer's shared memory may not be written
+// before the peer runs); the inverse arrives after its last read from a
+// peer and waits before it exits (no block's shared memory may go away
+// while a peer reads it).  Clusters above 8 blocks are non-portable and
+// need their attribute; `ntt_cluster_config` reports how many clusters can
+// be resident at once.  The kernel may also run in place: every global
+// read of a cluster comes before its barrier and every global write after
+// it, and clusters own disjoint columns.  Registers: the exchange's 64
+// values and the slab passes' 64 are live at different times (at most 128
+// a thread).  At these sizes the integer arithmetic (a butterfly's add and
+// subtract with their folds and, in most butterflies, a product and its
+// fold: about 8 instructions, on the SM's 64 INT32 lanes) and the memory
+// traffic each take longer alone than the bytes bound, so the kernel ends
+// near half of it.
 //
 // Layouts: x and out (Z, C) row-major int32 holding values in [0, q), read as
 // uint32.  Ragged C is masked here.
 
+#include <atomic>
 #include <cstdint>
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -108,11 +160,13 @@ __device__ __forceinline__ uint32_t mulmod(uint32_t a, uint32_t b) {
 // (root_N^e with e < N / 2 is never -1), and so does every forward twist
 // factor root^(j rev(a)) (j rev(a) < Z can never be Z / 2: both factors
 // would be powers of two whose exponents sum to H - 1, but they sum to at
-// most H - 2).
+// most H - 2).  With p = hi 2^16 + lo (hi < 2^16), p - hi q = lo - hi lies in
+// (-2^16, 2^16): one multiply-add, then an add-min that wraps a negative
+// value into [1, q).
 __device__ __forceinline__ uint32_t mulmod_tw(uint32_t a, uint32_t w) {
   const uint32_t p = a * w;
-  const uint32_t r = (p & 0xFFFFu) + kQ - (p >> 16);
-  return min(r, r - kQ);
+  const uint32_t r = p - (p >> 16) * kQ;
+  return min(r, r + kQ);
 }
 
 __device__ __forceinline__ uint32_t addmod(uint32_t a, uint32_t b) {
@@ -325,6 +379,319 @@ cudaError_t launch_outer(const uint32_t* x, uint32_t* out, const uint32_t* twist
 }
 
 // ---------------------------------------------------------------------------
+// ntt_cluster: 4096 < Z <= 2^16 in one pass (see above)
+// ---------------------------------------------------------------------------
+
+constexpr int CLUSTER_BW = 8;  // columns a cluster: one 32-byte sector a row
+
+// One block's share: R = Z1 * 64 rows of CLUSTER_BW columns, Z1 * CLUSTER_BW
+// threads (64 values each in at most 128 registers), the slab's padded layout.
+template <int L1>
+struct ClusterShape {
+  static constexpr int Z1 = 1 << L1, R = Z1 * 64, THREADS = Z1 * CLUSTER_BW;
+  static constexpr int BLK = 65 * CLUSTER_BW;  // shared words a padded block of 64 rows
+  static constexpr size_t SMEM = (size_t)Z1 * BLK * sizeof(uint32_t);
+  static constexpr int MIN_BLOCKS = 65536 / (128 * THREADS);  // an SM's registers
+};
+
+struct ClusterTwiddles {  // kernel parameter (constant bank)
+  uint32_t w0[1 << (OUTER_MAX_L - 1)];  // leading stages: root^(R e), e < Z0 / 2
+  PassTwiddles pass;                    // the R-point slab's, root^Z0
+};
+
+// The two halves of a cluster barrier (PTX barrier.cluster).  The relaxed
+// arrive orders nothing; the plain arrive releases this thread's earlier
+// memory operations and the wait acquires the peers'.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// Rotate each of the NI groups of Z0 = 2^L0 registers left by r: afterwards
+// v[k Z0 + d] holds the old v[k Z0 + (d + r) mod Z0].  One select a value for
+// each bit of r, every index a compile-time constant.
+template <int L0, int NI>
+__device__ __forceinline__ void rotate_groups(uint32_t* v, int r) {
+  constexpr int Z0 = 1 << L0;
+#pragma unroll
+  for (int b = 0; b < L0; ++b) {
+    const bool on = (r >> b) & 1;
+#pragma unroll
+    for (int k = 0; k < NI; ++k) {
+      uint32_t t[Z0];
+#pragma unroll
+      for (int d = 0; d < Z0; ++d) t[d] = v[k * Z0 + ((d + (1 << b)) & (Z0 - 1))];
+#pragma unroll
+      for (int d = 0; d < Z0; ++d) v[k * Z0 + d] = on ? t[d] : v[k * Z0 + d];
+    }
+  }
+}
+
+// Z = Z0 R with Z0 = 2^L0 blocks a cluster, each R = 2^L1 * 64 rows of
+// CLUSTER_BW columns (the shapes of the header above: Z1 = 2^L1, Z2 = 64).
+template <int L0, int L1, bool INV>
+__global__ void __launch_bounds__(ClusterShape<L1>::THREADS,
+                                  ClusterShape<L1>::MIN_BLOCKS)
+ntt_cluster(const uint32_t* x, uint32_t* out, const uint32_t* __restrict__ otwist,
+            const uint32_t* __restrict__ stwist, long long C,
+            const __grid_constant__ ClusterTwiddles tw) {
+  using Shape = ClusterShape<L1>;
+  constexpr int Z0 = 1 << L0, Z1 = Shape::Z1, R = Shape::R, BLK = Shape::BLK;
+  constexpr int BW = CLUSTER_BW;
+  constexpr int NI = 64 >> L0;  // exchange sequences a thread: 64 / Z0
+  constexpr int S = 64 / Z1;    // pass-A sequences a thread: 1 or 2
+  static_assert(Z0 <= Z1, "a block's share of the sequences spans whole 64-row blocks");
+  extern __shared__ uint32_t s[];  // rows [rank R, (rank + 1) R): row a 64 + j at a BLK + j BW + c
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int t = threadIdx.x, c = t % BW, p = t / BW;
+  const long long col = (long long)(blockIdx.x >> L0) * BW + c;
+  const bool live = col < C;
+  // The exchange: thread (p, c) takes sequences j_k = rank R / Z0 + k Z1 + p
+  // (k < NI) of column c.  Local row j_k of every rank lies at word
+  // (j_k / 64) BLK + (j_k % 64) BW + c = slot + (k Z1 / 64) BLK + (k Z1 % 64) BW.
+  const int j0 = rank * (R / Z0) + p;
+  const int slot = rank * (Z1 / Z0) * BLK + t;
+  uint32_t v[64];
+
+  if (!INV) {
+    cluster_arrive_relaxed();
+    const uint32_t* xj = x + (long long)j0 * C + col;
+#pragma unroll
+    for (int k = 0; k < NI; ++k)
+#pragma unroll
+      for (int a = 0; a < Z0; ++a)
+        v[k * Z0 + a] = live ? __ldcs(xj + (long long)(k * Z1 + a * R) * C) : 0u;
+#pragma unroll
+    for (int k = 0; k < NI; ++k) {
+      dif<L0, false>(v + k * Z0, tw.w0);
+#pragma unroll
+      for (int a = 1; a < Z0; ++a)  // twist root^(j rev(a)); 1 at a = 0
+        v[k * Z0 + a] = mulmod_tw(v[k * Z0 + a], __ldg(otwist + a * R + j0 + k * Z1));
+    }
+    // value a goes to rank a, in turns d = 0 .. Z0 - 1 to rank + d: its own
+    // rows first (local stores), then each block to a different peer at a time
+    rotate_groups<L0, NI>(v, rank);  // v[k Z0 + d]: value rank + d
+    cluster_wait();                  // every peer has started
+#pragma unroll
+    for (int d = 0; d < Z0; ++d) {
+      uint32_t* dst = d == 0 ? s : cluster.map_shared_rank(s, (rank + d) & (Z0 - 1));
+#pragma unroll
+      for (int k = 0; k < NI; ++k)
+        dst[slot + (k * Z1 / 64) * BLK + (k * Z1 % 64) * BW] = v[k * Z0 + d];
+    }
+    cluster.sync();
+    // pass A in place: sequences p + i Z1 of this block's rows
+#pragma unroll
+    for (int i = 0; i < S; ++i) {
+#pragma unroll
+      for (int a = 0; a < Z1; ++a) v[a] = s[a * BLK + i * Z1 * BW + t];
+      dif<L1, false>(v, tw.pass.w1);
+#pragma unroll
+      for (int a = 0; a < Z1; ++a) s[a * BLK + i * Z1 * BW + t] = v[a];
+    }
+    __syncthreads();
+    // pass B: block p (local rows p 64 + i), the twist, then its DIF
+#pragma unroll
+    for (int i = 0; i < 64; ++i) v[i] = s[p * BLK + i * BW + c];
+    twist_row<64, false>(v, stwist + p * 64);
+    dif<6, false>(v, tw.pass.w2);
+    if (live) {
+      uint32_t* ob = out + (long long)(rank * R + p * 64) * C + col;
+#pragma unroll
+      for (int i = 0; i < 64; ++i) __stcs(ob + (long long)i * C, v[i]);
+    }
+  } else {
+    // pass B's inverse stages and the inverse twist on local rows p 64 + i
+    const uint32_t* xb = x + (long long)(rank * R + p * 64) * C + col;
+#pragma unroll
+    for (int i = 0; i < 64; ++i) v[i] = live ? __ldcs(xb + (long long)i * C) : 0u;
+    dif<6, true>(v, tw.pass.w2);
+    twist_row<64, true>(v, stwist + p * 64);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) s[p * BLK + i * BW + c] = v[i];
+    __syncthreads();
+    // pass A's inverse stages in place on sequences p + i Z1
+#pragma unroll
+    for (int i = 0; i < S; ++i) {
+#pragma unroll
+      for (int a = 0; a < Z1; ++a) v[a] = s[a * BLK + i * Z1 * BW + t];
+      dif<L1, true>(v, tw.pass.w1);
+#pragma unroll
+      for (int a = 0; a < Z1; ++a) s[a * BLK + i * Z1 * BW + t] = v[a];
+    }
+    cluster.sync();
+    // value a comes from rank a, in turns as the forward's stores
+#pragma unroll
+    for (int d = 0; d < Z0; ++d) {
+      const uint32_t* src =
+          d == 0 ? s : cluster.map_shared_rank(s, (rank + d) & (Z0 - 1));
+#pragma unroll
+      for (int k = 0; k < NI; ++k)
+        v[k * Z0 + d] = src[slot + (k * Z1 / 64) * BLK + (k * Z1 % 64) * BW];
+    }
+    cluster_arrive();                             // the reads from the peers are done
+    rotate_groups<L0, NI>(v, (Z0 - rank) & (Z0 - 1));  // v[k Z0 + a]: value a
+#pragma unroll
+    for (int k = 0; k < NI; ++k) {
+#pragma unroll
+      for (int a = 0; a < Z0; ++a)  // inverse twist, Z^-1 folded in
+        v[k * Z0 + a] = mulmod(v[k * Z0 + a], __ldg(otwist + a * R + j0 + k * Z1));
+      dif<L0, true>(v + k * Z0, tw.w0);
+    }
+    if (live) {
+      uint32_t* oj = out + (long long)j0 * C + col;
+#pragma unroll
+      for (int k = 0; k < NI; ++k)
+#pragma unroll
+        for (int a = 0; a < Z0; ++a)
+          __stcs(oj + (long long)(k * Z1 + a * R) * C, v[k * Z0 + a]);
+    }
+    cluster_wait();  // no peer reads this block's rows any more
+  }
+}
+
+typedef void (*ClusterKernel)(const uint32_t*, uint32_t*, const uint32_t*,
+                              const uint32_t*, long long, const ClusterTwiddles);
+
+// Sets the function attributes of ntt_cluster<L0, L1, INV> on the current
+// device, once a device (they hold for every later launch there).
+template <int L0, int L1, bool INV>
+cudaError_t cluster_attributes() {
+  static std::atomic<unsigned long long> done{0};  // a bit per device < 64
+  int dev;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
+  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
+  const ClusterKernel kernel = ntt_cluster<L0, L1, INV>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)ClusterShape<L1>::SMEM);
+  if (err == cudaSuccess && (1 << L0) > 8)  // above the portable cluster size
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
+  return err;
+}
+
+// The launch of ntt_cluster<L0, L1, INV> over C columns: its attributes set
+// and `cfg` filled (the cluster dimension in attr[0]).
+template <int L0, int L1, bool INV>
+cudaError_t cluster_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr,
+                           long long C, cudaStream_t stream) {
+  using Shape = ClusterShape<L1>;
+  const cudaError_t err = cluster_attributes<L0, L1, INV>();
+  if (err != cudaSuccess) return err;
+  const long long groups = (C + CLUSTER_BW - 1) / CLUSTER_BW;
+  if (groups > (0x7FFFFFFFLL >> L0)) return cudaErrorInvalidValue;
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3((unsigned)(groups << L0));
+  cfg->blockDim = dim3(Shape::THREADS);
+  cfg->dynamicSmemBytes = Shape::SMEM;
+  cfg->stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1u << L0;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return cudaSuccess;
+}
+
+template <int L0, int L1, bool INV>
+cudaError_t launch_cluster(const uint32_t* x, uint32_t* out, const uint32_t* otwist,
+                           const uint32_t* stwist, const ClusterTwiddles& tw,
+                           long long C, cudaStream_t stream) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  cudaError_t err = cluster_config<L0, L1, INV>(&cfg, attr, C, stream);
+  if (err != cudaSuccess) return err;
+  err = cudaLaunchKernelEx(&cfg, ntt_cluster<L0, L1, INV>, x, out, otwist,
+                           stwist, C, tw);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// info[0..6] of ntt_cluster<L0, L1, INV>: blocks a cluster, shared bytes a
+// block, columns a cluster, threads a block, the clusters that can be
+// resident at once (cudaOccupancyMaxActiveClusters), registers a thread
+// and local (spill) bytes a thread.
+template <int L0, int L1, bool INV>
+cudaError_t cluster_facts(int* info) {
+  using Shape = ClusterShape<L1>;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  cudaError_t err = cluster_config<L0, L1, INV>(&cfg, attr, 1LL << 20, nullptr);
+  if (err != cudaSuccess) return err;
+  info[0] = 1 << L0;
+  info[1] = (int)Shape::SMEM;
+  info[2] = CLUSTER_BW;
+  info[3] = Shape::THREADS;
+  const ClusterKernel kernel = ntt_cluster<L0, L1, INV>;
+  err = cudaOccupancyMaxActiveClusters(&info[4], kernel, &cfg);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes fa;
+  err = cudaFuncGetAttributes(&fa, kernel);
+  if (err != cudaSuccess) return err;
+  info[5] = fa.numRegs;
+  info[6] = (int)fa.localSizeBytes;
+  return cudaSuccess;
+}
+
+// The block layout of a Z-point transform, Z = 2^H: rows = 2048 for
+// 13 <= H <= 15 (256 threads, two blocks an SM, so one block's loads and
+// stores overlap the other's arithmetic) and rows = 4096 for H = 16 (512
+// threads, one block an SM: 2048 rows would need 32 blocks a cluster).
+// Calls fn.template run<L0, L1>() with rows = 2^(L1 + 6) and Z0 = 2^L0, or
+// returns cudaErrorInvalidValue for any other H.
+template <class Fn>
+cudaError_t with_layout(int H, Fn& fn) {
+  switch (H) {
+    case 13: return fn.template run<2, 5>();
+    case 14: return fn.template run<3, 5>();
+    case 15: return fn.template run<4, 5>();
+    case 16: return fn.template run<4, 6>();
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+struct ClusterLaunch {  // with_layout's launch
+  const uint32_t *x, *otwist, *stwist;
+  uint32_t* out;
+  const ClusterTwiddles& tw;
+  long long C;
+  bool inverse;
+  cudaStream_t stream;
+  template <int L0, int L1>
+  cudaError_t run() {
+    if (C <= 0) return cudaGetLastError();
+    return inverse
+        ? launch_cluster<L0, L1, true>(x, out, otwist, stwist, tw, C, stream)
+        : launch_cluster<L0, L1, false>(x, out, otwist, stwist, tw, C, stream);
+  }
+};
+
+struct ClusterFacts {  // with_layout's facts of both directions
+  int* info;
+  template <int L0, int L1>
+  cudaError_t run() {
+    int inv[7];
+    cudaError_t err = cluster_facts<L0, L1, false>(info);
+    if (err != cudaSuccess) return err;
+    err = cluster_facts<L0, L1, true>(inv);
+    for (int i = 0; i < 3; ++i) info[7 + i] = inv[4 + i];
+    return err;
+  }
+};
+
+// ---------------------------------------------------------------------------
 // ntt_regs: Z <= 64 (see above)
 // ---------------------------------------------------------------------------
 
@@ -448,4 +815,41 @@ extern "C" int ntt_regs_launch(const void* x, void* out, const void* tw_host,
     case 5: return (int)launch_regs<5>(xi, o, tw, C, scale, inv, st);
     default: return (int)launch_regs<6>(xi, o, tw, C, scale, inv, st);
   }
+}
+
+// out = the Z-point NTT, Z = 2^H with 13 <= H <= 16, along axis 0 of a
+// (Z, C) array on `stream` in one pass: clusters of Z / rows blocks, each
+// holding `rows` rows (2048 below H = 16, 4096 at it; see with_layout) of 8
+// columns in shared memory (see ntt_cluster above).  otwist: the
+// (Z / rows, rows) leading-stages twist table (Z^-1 folded into the
+// inverse's); stwist: the (rows / 64, 64) twist table of the rows-point
+// slab with root^(Z / rows); both in device memory, 16-byte aligned.
+// tw_host: 72 words in host memory, copied into the launch's parameters:
+// w0[8] = root^(rows e), e < Z / rows / 2, then the slab's w1[32] and
+// w2[32].  x may equal out.  Returns the error of the attributes, of
+// cudaLaunchKernelEx (a refused cluster launch) or cudaGetLastError().
+extern "C" int ntt_cluster_launch(const void* x, void* out, const void* otwist,
+                                  const void* stwist, const void* tw_host, int H,
+                                  long long C, int inverse, void* stream) {
+  ClusterTwiddles tw;
+  const uint32_t* src = (const uint32_t*)tw_host;
+  for (int i = 0; i < 8; ++i) tw.w0[i] = src[i];
+  for (int i = 0; i < 32; ++i) {
+    tw.pass.w1[i] = src[8 + i];
+    tw.pass.w2[i] = src[40 + i];
+  }
+  ClusterLaunch fn{(const uint32_t*)x, (const uint32_t*)otwist,
+                   (const uint32_t*)stwist, (uint32_t*)out, tw, C, inverse != 0,
+                   (cudaStream_t)stream};
+  return (int)with_layout(H, fn);
+}
+
+// Launch facts of ntt_cluster at Z = 2^H (rows a block: see with_layout),
+// for reports: info[0] blocks a cluster, [1] dynamic shared bytes a block, [2]
+// columns a cluster, [3] threads a block, then (forward, inverse) each:
+// [4, 7] the clusters that can be resident at once, [5, 8] registers a
+// thread, [6, 9] local (spill) bytes a thread.  Returns the first CUDA error.
+extern "C" int ntt_cluster_config(int H, int* info) {
+  ClusterFacts fn{info};
+  return (int)with_layout(H, fn);
 }

@@ -77,13 +77,18 @@ def test_cuda_gf_matmul_edge_shapes(cuda_device, M, K, N, corner):
     assert torch.equal(got.long(), gf_matmul_plain(a, b))
 
 
-def _ntt_kernels(Z):
-    """The kernels the wrapper launches for a Z-point transform."""
+def _ntt_kernels(Z, inverse):
+    """The kernels the wrapper launches for a Z-point transform (by Z
+    alone, either direction): above 4096 the one-pass cluster kernel."""
     if Z <= 64:
         return {"registers": 1}
     if Z <= 4096:
         return {"slab": 1}
-    return {"outer": 1, "slab": 1}
+    return {"cluster": 1}
+
+
+def _launched(before):
+    return {k: n - before[k] for k, n in ntt.launches_by_kernel.items() if n != before[k]}
 
 
 @pytest.mark.cuda
@@ -96,7 +101,7 @@ def test_cuda_ntt_matches_plain(cuda_device, Z, C):
         before = ntt.launches
         got = ntt(x, inverse=inverse)
         torch.cuda.synchronize()
-        assert ntt.launches == before + sum(_ntt_kernels(Z).values())
+        assert ntt.launches == before + sum(_ntt_kernels(Z, inverse).values())
         assert torch.equal(got.long(), ntt_plain(x, inverse=inverse))
         assert torch.equal(ntt(full, inverse=inverse).long(),
                            ntt_plain(full, inverse=inverse))
@@ -107,16 +112,88 @@ def test_cuda_ntt_matches_plain(cuda_device, Z, C):
 @pytest.mark.parametrize("Z", [1 << h for h in range(13)] + [8192, 16384, 65536])
 def test_cuda_ntt_kernels_by_z(cuda_device, Z, inverse):
     """Every kernel and the boundaries between them (registers up to Z = 64,
-    the two-pass slab up to 4096, the leading stages and the slab above), at
-    a ragged width."""
+    the two-pass slab up to 4096, the cluster kernel above), at a ragged
+    width."""
     C = 1000 + 3 * Z + 1 if Z <= 4096 else 97
     x = _cuda_rand(cuda_device, Z, C, seed=Z + 7)
     before = dict(ntt.launches_by_kernel)
     got = ntt(x, inverse=inverse)
     torch.cuda.synchronize()
-    launched = {k: n - before[k] for k, n in ntt.launches_by_kernel.items() if n != before[k]}
-    assert launched == _ntt_kernels(Z)
+    assert _launched(before) == _ntt_kernels(Z, inverse)
     assert torch.equal(got.long(), ntt_plain(x, inverse=inverse))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [1, 7, 97, 4099])
+@pytest.mark.parametrize("Z", [1 << 13, 1 << 14, 1 << 15, 1 << 16])
+def test_cuda_ntt_cluster_matches_plain(cuda_device, Z, C):
+    """The one-pass cluster kernel, forced, one launch a transform: ragged
+    widths around its 8-column clusters and an all-65536 input, both
+    directions."""
+    x = _cuda_rand(cuda_device, Z, C, seed=Z + C)
+    full = torch.full((Z, C), FERMAT_Q - 1, dtype=torch.int32, device=cuda_device)
+    for inverse in (False, True):
+        for inp in (x, full):
+            before = dict(ntt.launches_by_kernel)
+            got = ntt(inp, inverse=inverse, _route="cluster")
+            torch.cuda.synchronize()
+            assert _launched(before) == {"cluster": 1}
+            assert torch.equal(got.long(), ntt_plain(inp, inverse=inverse))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Z", [1 << 13, 1 << 14, 1 << 15, 1 << 16])
+def test_cuda_ntt_two_pass_route_matches_plain(cuda_device, Z):
+    """The forced two-pass route (leading stages, then the slab on each
+    4096-row block; the other way round for the inverse) still holds."""
+    x = _cuda_rand(cuda_device, Z, 99, seed=Z + 1)
+    for inverse in (False, True):
+        before = dict(ntt.launches_by_kernel)
+        got = ntt(x, inverse=inverse, _route="two-pass")
+        torch.cuda.synchronize()
+        assert _launched(before) == {"outer": 1, "slab": 1}
+        assert torch.equal(got.long(), ntt_plain(x, inverse=inverse))
+
+
+@pytest.mark.cuda
+def test_cuda_ntt_refused_cluster_launch_raises(cuda_device, monkeypatch):
+    """A cluster launch the card refuses raises, counts no launch and is not
+    replaced by another kernel or the plain version."""
+    import importlib
+
+    from repro_torch.kernels import build
+
+    mod = importlib.import_module("repro_torch.kernels.ntt")
+    x = _cuda_rand(cuda_device, 8192, 33, seed=5)
+    root, scale = mod.roots(8192, False)
+    tw, otwist, stwist = mod._device_twist("cluster", 8192, root, scale, x.device)
+    out = torch.empty_like(x)
+    stream = torch.cuda.current_stream().cuda_stream
+    # no cluster kernel for these log2 Z: refused, nothing runs
+    for H in (12, 17, 0, -1):
+        err = mod._cluster_launcher()(x.data_ptr(), out.data_ptr(), otwist.data_ptr(),
+                                      stwist.data_ptr(), tw.ctypes.data, H, 33, 0,
+                                      stream)
+        assert err != 0
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            build.check(err, "ntt (cluster)")
+
+    def refused(*args):
+        return 9  # cudaErrorInvalidConfiguration
+
+    def no_plain(*args, **kwargs):
+        raise AssertionError("the plain version ran on a CUDA tensor")
+
+    monkeypatch.setattr(mod, "_cluster_launcher", lambda: refused)
+    monkeypatch.setattr(mod, "ntt_plain", no_plain)
+    before, n = dict(ntt.launches_by_kernel), ntt.launches
+    for inverse in (False, True):
+        with pytest.raises(RuntimeError, match="cluster"):
+            ntt(x, inverse=inverse, _route="cluster")
+        with pytest.raises(RuntimeError, match="cluster"):
+            ntt(x, inverse=inverse)
+    torch.cuda.synchronize()
+    assert ntt.launches == n and ntt.launches_by_kernel == before
 
 
 @pytest.mark.cuda
