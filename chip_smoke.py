@@ -74,10 +74,23 @@
    read, then random `fail`s racing 36 queued encode/decode/rebuild
    submissions of two tenants; every future bitwise; coalescing ratio,
    failovers and p50/p99 latencies;
-11. prints the per-kernel JSON line (launches summed over every path) and,
+11. serve phase: the model server (`repro_torch.launch.serve`) on
+   Qwen3-1.7B at full width and depth (28 layers, d_model 2048, vocab
+   151936; 1,720,574,976 seeded bf16/float32 parameters on the card):
+   the degraded coded self-check of the whole parameter tree (rs K=8 R=2:
+   the NTT encodes, `gf_matmul` repairs and reads; bitwise) with its wall
+   split by spans and the host's and the card's peak memory; the
+   host-solve self-check (`reconstruct` -> `gf_solve` -> `gf_matmul`) of
+   every arch's smoke-width tree, its codeword equal to the CPU's; greedy
+   decode of B = 4 prompts of 16 tokens plus 32 new ones through
+   `serve(...)`, ms per token and tokens/s beside the 1.027 ms weight-read
+   bound, the profiler's device busy time and kernels a step; the step
+   logits against one full forward over the same tokens (atol 0.15, rtol
+   0.05, bf16); decode against forward for every arch at smoke width;
+12. prints the per-kernel JSON line (launches summed over every path) and,
    last, the device JSON line.
 
-Each path of phases 4-10 is driven with the launch counts set to 0 just
+Each path of phases 4-11 is driven with the launch counts set to 0 just
 before it and read just after.
 
 The kernels: `gf_matmul` (int8 tensor cores, 8-bit limbs), `gf_matmul_batched`
@@ -129,6 +142,11 @@ SVC_REQUESTS = 32     # encodes per client thread in the service phase
 MESH_DFT_K = 4096     # the mesh phase's dft encode (butterfly rounds)
 MESH_COMMUTE_TOPO = (5, 64)  # 320 slots for rs 256/64; 5 hosts do not
                              # divide K: a flat mesh, and the rewrite fires
+SERVE_ARCH = "qwen3_1_7b"  # the serve phase's model, full width and depth
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 16, 32  # the JAX CLI's defaults
+QWEN3_PARAMS = 1_720_574_976
+QWEN3_BYTES = 3_441_397_760  # bf16 weights, float32 norms
+DEC_ATOL, DEC_RTOL = 0.15, 0.05  # decode vs forward in bf16 (tests/test_archs.py)
 CARD = ""             # nvidia-smi's name and power limit, set by main()
 
 # Peak rates of one H100 SXM (NVIDIA's data sheet): 3.35 TB/s of HBM3,
@@ -1678,6 +1696,223 @@ def service_phase():
     return total
 
 
+# ---------------------------------------------------------------------------
+# serve phase: Qwen3-1.7B at full width behind its coded self-check
+# ---------------------------------------------------------------------------
+
+class RssPeak:
+    """The process's peak resident set (bytes) over a with-block, sampled
+    every `period` s from /proc/self/statm by a thread (the kernel's own
+    peak, ru_maxrss, covers the process's whole life)."""
+
+    def __init__(self, period: float = 0.02):
+        self.period = period
+        self.peak = 0
+        self._stop = None
+        self._thread = None
+
+    def _rss(self) -> int:
+        with open("/proc/self/statm") as fh:
+            return int(fh.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+    def _sample(self) -> None:
+        while not self._stop.wait(self.period):
+            self.peak = max(self.peak, self._rss())
+
+    def __enter__(self):
+        import threading
+
+        self.peak = self._rss()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=10)
+        self.peak = max(self.peak, self._rss())
+
+
+def tree_leaves(tree: dict):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from tree_leaves(v)
+        else:
+            yield v
+
+
+def decode_vs_forward(cfg, model, gen, B: int = 2, S: int = 8) -> float:
+    """Stepwise decode logits against one full forward on the card (the
+    JAX package's `test_decode_matches_forward`); returns max |diff| and
+    fails past atol 0.15 / rtol 0.05."""
+    import torch
+
+    from repro_torch.models import model as M
+
+    toks = torch.randint(0, cfg.vocab, (B, S), generator=gen, device="cuda")
+    fwd = {"tokens": toks}
+    enc = None
+    if cfg.family == "encdec":
+        frames = torch.randn((B, cfg.n_frames, cfg.d_model), generator=gen,
+                             device="cuda")
+        enc = M.encode_frames(cfg, model, frames.to(torch.bfloat16))
+        fwd["frames"] = frames
+    cache = M.init_cache(cfg, B, 64, enc)
+    need(cache[next(iter(cache))].device.type == "cuda", "cache off the card")
+    outs = []
+    for t in range(S):
+        lg, cache = M.decode_step(cfg, model, toks[:, t], t, cache, enc)
+        outs.append(lg)
+    step = torch.stack(outs, 1).float()
+    full = M.forward(cfg, model, fwd).float()
+    need(step.device.type == full.device.type == "cuda", "logits off the card")
+    need(torch.isfinite(full).all().item(), f"{cfg.name}: non-finite logits")
+    need(torch.allclose(step, full, atol=DEC_ATOL, rtol=DEC_RTOL),
+         f"{cfg.name}: decode differs from forward")
+    return (step - full).abs().max().item()
+
+
+def serve_phase(gen) -> dict:
+    """The model server on the card: Qwen3-1.7B at full width and depth
+    (seeded bf16 weights), its degraded coded self-check, the host-solve
+    self-check of every arch at smoke width, greedy decode through
+    `launch.serve.serve` beside the weight-read bound, decode against
+    forward at full width and at every arch's smoke width.  Every leg with
+    the launch counts set to 0 just before and read just after; returns
+    each kernel's launches summed."""
+    import contextlib
+    import io
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.launch import serve as LS
+    from repro_torch.models import model as M
+    from repro_torch.models.convert import to_reference
+    from repro_torch.obs import trace
+
+    total = dict.fromkeys(DESIGNS, 0)
+    cfg = get_config(SERVE_ARCH)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = M.init_params(cfg, gen)  # device None: the card
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    params = M.param_count(model)
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    need(all(p.device.type == "cuda" for p in model.parameters()),
+         "parameters off the card")
+    need(params == QWEN3_PARAMS, f"{params} parameters, not {QWEN3_PARAMS}")
+    need(nbytes == QWEN3_BYTES, f"{nbytes} parameter bytes, not {QWEN3_BYTES}")
+    print(json.dumps({"serve_model": cfg.name, "layers": cfg.n_layers,
+                      "d_model": cfg.d_model, "vocab": cfg.vocab,
+                      "params": params, "param_bytes": nbytes,
+                      "init_s": init_s, "card": CARD}))
+
+    # -- the degraded coded self-check on the parameter tree --------------
+    tree = to_reference(model)
+    tree_bytes = sum(v.numel() * v.element_size()
+                     for v in tree_leaves(tree))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with RssPeak() as rss, trace.installed() as tr:
+        full, wall, counts = counted(
+            "selfcheck", lambda: LS._coded_selfcheck(tree, 8, 2, degraded=True),
+            total)
+    shard_w = full.shape[1]
+    del full, tree
+    stages: dict = {}
+    for e in tr.events():
+        key = f"{e.get('cat', '')}.{e['name']}"
+        stages[key] = stages.get(key, 0.0) + e["dur"] / 1e3
+    need(counts["ntt"] >= 1 and counts["gf_matmul"] >= 1,
+         f"self-check launches {counts}")
+    print(json.dumps({"selfcheck": "degraded (DecodePlan), rs K=8 R=2",
+                      "tree": "whole", "tree_bytes": tree_bytes,
+                      "symbols": tree_bytes // 2, "shard_w": shard_w,
+                      "wall_ms": wall, "stages_ms": stages,
+                      "host_peak_gb": rss.peak / 1e9,
+                      "device_peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                      "launches": counts, "bitwise": True, "card": CARD}))
+
+    # -- the host-solve self-check on every arch at smoke width ------------
+    for arch in ARCH_IDS:
+        if arch == "paper_rs":
+            continue
+        scfg = get_config(arch).smoke()
+        stree = to_reference(M.init_params(scfg, gen))
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            full, wall, counts = counted(
+                f"selfcheck {arch}", lambda: LS._coded_selfcheck(stree, 8, 2),
+                total)
+            cpu = LS._coded_selfcheck(stree, 8, 2, device="cpu")
+        need(out.getvalue().count("coded self-check OK (host solve)") == 2,
+             out.getvalue())
+        need(np.array_equal(full, cpu), f"{arch}: card codeword != CPU's")
+        need(counts["ntt"] >= 1 and counts["gf_matmul"] >= 1,
+             f"{arch}: self-check launches {counts}")
+        print(json.dumps({"selfcheck": "host solve (reconstruct -> gf_solve)",
+                          "arch": arch, "shard_w": full.shape[1],
+                          "wall_ms": wall, "launches": counts,
+                          "equal_to_cpu": True}))
+
+    # -- serve: greedy decode at B = 4, prompt 16, 32 new tokens -----------
+    B, P, G = SERVE_BATCH, SERVE_PROMPT, SERVE_GEN
+    prompt = torch.randint(0, cfg.vocab, (B, P), generator=gen, device="cuda")
+    LS.serve(cfg, model, prompt[:, :4], 2)  # warm-up: cuBLAS, allocator
+    torch.cuda.reset_peak_memory_stats()
+    res, _, counts = counted("serve", lambda: LS.serve(cfg, model, prompt, G),
+                             total)
+    need(res.tokens.shape == (B, P + G) and res.tokens.device.type == "cuda",
+         res.tokens.shape)
+    need(bool(((res.tokens >= 0) & (res.tokens < cfg.vocab)).all()),
+         "token out of the vocabulary")
+    need(torch.isfinite(res.logits.float()).all().item(), "non-finite logits")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        LS.serve(cfg, model, prompt, G)
+    busy_ms = sum(a.self_device_time_total for a in prof.key_averages()) / 1e3
+    kernels = sum(1 for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    bound_ms = QWEN3_BYTES / HBM_BYTES_PER_S * 1e3
+    print(json.dumps({
+        "serve": f"{cfg.name} greedy decode, bf16", "batch": B, "prompt": P,
+        "gen": G, "steps": res.steps, "wall_ms": res.wall_s * 1e3,
+        "ms_per_token": res.ms_per_token, "tokens_per_s": res.tokens_per_s,
+        "weight_read_bound_ms": bound_ms,
+        "bound_source": "3,441,397,760 parameter bytes / 3.35 TB/s (data "
+                        "sheet): arithmetic, not a measurement",
+        "profiled_device_busy_ms": busy_ms,
+        "profiled_kernels_per_step": kernels / res.steps,
+        "device_peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches": counts, "card": CARD}))
+
+    # -- decode equals forward, full width ---------------------------------
+    fwd = M.forward(cfg, model, {"tokens": res.tokens[:, :res.steps]}).float()
+    step = res.logits.float()
+    err = (step - fwd).abs().max().item()
+    need(torch.allclose(step, fwd, atol=DEC_ATOL, rtol=DEC_RTOL),
+         f"full width: decode differs from forward by {err}")
+    print(json.dumps({"decode_vs_forward": cfg.name, "positions": res.steps,
+                      "max_abs_diff": err, "atol": DEC_ATOL, "rtol": DEC_RTOL}))
+    del model, res, fwd, step
+    torch.cuda.empty_cache()
+
+    # -- every arch at smoke width: decode equals forward ------------------
+    errs = {}
+    for arch in ARCH_IDS:
+        if arch == "paper_rs":
+            continue
+        scfg = get_config(arch).smoke()
+        errs[arch] = decode_vs_forward(scfg, M.init_params(scfg, gen), gen)
+    print(json.dumps({"decode_vs_forward_smoke": errs, "atol": DEC_ATOL,
+                      "rtol": DEC_RTOL}))
+    return total
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         fail(f"no src/repro_torch beside {__file__}: run it from the repository")
@@ -1729,7 +1964,8 @@ def main() -> int:
         launches[name] += n
     simulator_phase()
     for phase in (solve_phase, lambda: checkpoint_phase(gen),
-                  lambda: coding_phase(gen), service_phase):
+                  lambda: coding_phase(gen), service_phase,
+                  lambda: serve_phase(gen)):
         for name, n in phase().items():
             launches[name] += n
 

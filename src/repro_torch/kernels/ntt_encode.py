@@ -149,14 +149,21 @@ def ntt_encode(x: torch.Tensor, params: NTTEncodeParams) -> torch.Tensor:
     def i32(t):
         return t.to(torch.int32).contiguous()
 
+    def scaled(scale, t):
+        """scale * t mod q as a new int64 tensor, multiplied and reduced in
+        place: `fermat_mul` without its two int64 temporaries (a product
+        of two field elements is below 2^32, exact in int64)."""
+        return t.to(torch.int64, copy=True).mul_(scale).remainder_(FERMAT_Q)
+
     phi_inv, psi, twist = params.on(x.device)
     if params.case_kge:
-        # blocks side by side in one batched transform: (Z, M*W) columns
-        xb = fermat_mul(phi_inv, x.reshape(M, Z, W).transpose(0, 1))
-        t = ntt(i32(xb).reshape(Z, M * W), inverse=True)
-        t = fermat_mul(twist, t.reshape(Z, M, W))
-        y = ntt(i32(t).reshape(Z, M * W)).reshape(Z, M, W)
-        return i32(fermat_reduce(fermat_mul(psi, y).sum(dim=1)))
+        # blocks side by side in one batched transform: (Z, M*W) columns;
+        # one int64 buffer live at a time (a parameter tree's 1.7e9
+        # symbols at rs 8/2 are 13.8 GB in int64)
+        t = scaled(phi_inv, x.reshape(M, Z, W).transpose(0, 1))
+        t = ntt(i32(t).reshape(Z, M * W), inverse=True)
+        t = ntt(i32(scaled(twist, t.reshape(Z, M, W))).reshape(Z, M * W))
+        return i32(fermat_reduce(scaled(psi, t.reshape(Z, M, W)).sum(dim=1)))
     # K < R: one interpolation, M twisted evaluations (beta blocks)
     t0 = ntt(i32(fermat_mul(phi_inv[:, 0], x)), inverse=True)   # (K, W)
     tb = fermat_mul(twist, t0[:, None, :])                      # (K, M, W)

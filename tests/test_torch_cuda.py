@@ -554,3 +554,77 @@ def test_cuda_mesh_codeword_matches_local(cuda_device, method):
     assert np.array_equal(mesh.rebuild(cw), cw)
     mesh.close()
     local.close()
+
+
+# ---------------------------------------------------------------------------
+# the model substrate and the model server on the card
+# ---------------------------------------------------------------------------
+
+def _model_archs():
+    from repro_torch.configs import ARCH_IDS
+
+    return [a for a in ARCH_IDS if a != "paper_rs"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", _model_archs())
+def test_cuda_smoke_decode_matches_forward(cuda_device, arch):
+    """Stepwise decode == one full forward at smoke width on the card, in
+    bf16, at the JAX package's tolerance (atol 0.15, rtol 0.05)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+
+    cfg = get_config(arch).smoke()
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    model = M.init_params(cfg, gen, cuda_device)
+    B, S = 2, 8
+    toks = torch.randint(0, cfg.vocab, (B, S), generator=gen, device=cuda_device)
+    fwd, enc = {"tokens": toks}, None
+    if cfg.family == "encdec":
+        fwd["frames"] = torch.randn((B, cfg.n_frames, cfg.d_model), generator=gen,
+                                    device=cuda_device)
+        enc = M.encode_frames(cfg, model, fwd["frames"].to(torch.bfloat16))
+    cache = M.init_cache(cfg, B, 64, enc)
+    outs = []
+    for t in range(S):
+        lg, cache = M.decode_step(cfg, model, toks[:, t], t, cache, enc)
+        outs.append(lg)
+    step = torch.stack(outs, 1).float()
+    full = M.forward(cfg, model, fwd).float()
+    assert step.device.type == full.device.type == "cuda"
+    assert torch.isfinite(full).all()
+    torch.testing.assert_close(step, full, atol=0.15, rtol=0.05)
+
+
+@pytest.mark.cuda
+def test_cuda_init_params_default_device(cuda_device):
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+
+    cfg = get_config("qwen3_1_7b").smoke()
+    model = M.init_params(cfg)
+    assert all(p.device.type == "cuda" for p in model.parameters())
+    assert M.init_cache(cfg, 1, 4)["k"].device.type == "cuda"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("degraded", [False, True])
+def test_cuda_selfcheck_launches_ntt_and_gf_matmul(cuda_device, degraded, capsys):
+    """The coded self-check of a smoke tree on the card: the NTT encodes
+    (rs 8/2: the register kernel), `gf_matmul` recovers (the DecodePlan, or
+    `gf_solve`'s apply), and the codeword equals the CPU's bitwise."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as LS
+    from repro_torch.models import model as M
+    from repro_torch.models.convert import to_reference
+
+    cfg = get_config("qwen3_1_7b").smoke()
+    tree = to_reference(M.init_params(cfg, None, cuda_device))
+    gm, nt = gf_matmul.launches, ntt.launches_by_kernel["registers"]
+    full = LS._coded_selfcheck(tree, 8, 2, degraded=degraded)
+    torch.cuda.synchronize()
+    assert ntt.launches_by_kernel["registers"] > nt
+    assert gf_matmul.launches > gm
+    assert np.array_equal(full, LS._coded_selfcheck(tree, 8, 2, degraded=degraded,
+                                                    device="cpu"))
+    assert capsys.readouterr().out.count("coded self-check OK") == 2

@@ -185,7 +185,9 @@ def test_port_imports_neither_jax_nor_reference():
     code = ("import sys, repro_torch.api, repro_torch.recover, "
             "repro_torch.kernels, repro_torch.launch, repro_torch.core, "
             "repro_torch.ckpt, repro_torch.coding, "
-            "repro_torch.launch.service\n"
+            "repro_torch.launch.service, repro_torch.launch.serve, "
+            "repro_torch.configs, repro_torch.models.convert, "
+            "repro_torch.train.serve\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "assert not bad, bad\n")
@@ -212,7 +214,10 @@ def test_port_sources_import_no_jax_or_reference():
             "src/repro_torch/core/schedule.py",
             "src/repro_torch/ckpt/checkpoint.py",
             "src/repro_torch/coding/gradient_code.py",
-            "src/repro_torch/launch/service.py"} <= scanned
+            "src/repro_torch/launch/service.py",
+            "src/repro_torch/launch/serve.py",
+            "src/repro_torch/models/model.py",
+            "src/repro_torch/configs/qwen3_1_7b.py"} <= scanned
     for path in files:
         roots = set(_imported_roots(path))
         assert not roots & {"jax", "jaxlib", "repro"}, (path, roots)
