@@ -87,10 +87,28 @@
    bound, the profiler's device busy time and kernels a step; the step
    logits against one full forward over the same tokens (atol 0.15, rtol
    0.05, bf16); decode against forward for every arch at smoke width;
-12. prints the per-kernel JSON line (launches summed over every path) and,
+12. training phase (`repro_torch.launch.train`): Qwen3-1.7B at full width
+   and depth (the same 1,720,574,976 parameters, 17.2 GB of state with
+   AdamW's float32 moments), bf16, remat on: 20 steps at the JAX
+   launcher's defaults (batch 8, sequence 128, peak LR 3e-3) through
+   `train(...)`, each loss finite and the last below the first; the median
+   ms per step and tokens/s beside the 14.3 ms FLOP bound,
+   `value_and_grad` and the optimizer update timed alone, the profiler's
+   device busy time and kernels a step, the device peak; microbatches=2
+   against the full batch (rtol 2e-2) and one int8-compressed step; the
+   straggler-coded step (`GradientCoder(4, s=1)`) at full width: run twice
+   all-alive, bitwise equal, and with stragglers {0}, {1}, {3} bitwise the
+   all-alive params, {0, 1} refused with no kernel launched; the
+   launcher's failure-injection scenario with stragglers and self-check
+   at smoke width (`main(LAUNCH_ARGV)`: the parity encode launches `ntt`,
+   the degraded restore `gf_matmul`; the restored state on the card; per
+   checkpoint op its wall and the spans by stage); one `value_and_grad`
+   of every arch at smoke width, every gradient finite, the loss finite
+   after one SGD step;
+13. prints the per-kernel JSON line (launches summed over every path) and,
    last, the device JSON line.
 
-Each path of phases 4-11 is driven with the launch counts set to 0 just
+Each path of phases 4-12 is driven with the launch counts set to 0 just
 before it and read just after.
 
 The kernels: `gf_matmul` (int8 tensor cores, 8-bit limbs), `gf_matmul_batched`
@@ -147,6 +165,17 @@ SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 16, 32  # the JAX CLI's defaults
 QWEN3_PARAMS = 1_720_574_976
 QWEN3_BYTES = 3_441_397_760  # bf16 weights, float32 norms
 DEC_ATOL, DEC_RTOL = 0.15, 0.05  # decode vs forward in bf16 (tests/test_archs.py)
+# the training phase: the JAX launcher's defaults (batch 8, sequence 128,
+# peak LR 3e-3), 20 AdamW steps of Qwen3-1.7B at full width and depth
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 20, 8, 128, 3e-3
+QWEN3_STATE_BYTES = QWEN3_BYTES + 2 * 4 * QWEN3_PARAMS + 4  # + AdamW m, v; step
+BF16_FLOP_PER_S = 989e12  # H100 SXM data sheet, dense bf16, 700 W
+# the launcher's failure-injection scenario (tests/test_launch.py), smoke
+# width, plus the straggler-coded step and its self-check
+LAUNCH_ARGV = ["--steps", "25", "--ckpt-every", "10", "--fail-at", "12,1,3",
+               "--peak-lr", "5e-3", "--seq-len", "64", "--batch", "4",
+               "--stragglers", "1", "--coded-workers", "4",
+               "--straggler-selfcheck", "--device", "cuda"]
 CARD = ""             # nvidia-smi's name and power limit, set by main()
 
 # Peak rates of one H100 SXM (NVIDIA's data sheet): 3.35 TB/s of HBM3,
@@ -1785,7 +1814,6 @@ def serve_phase(gen) -> dict:
     import io
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import ARCH_IDS, get_config
     from repro_torch.launch import serve as LS
@@ -1871,12 +1899,7 @@ def serve_phase(gen) -> dict:
     need(bool(((res.tokens >= 0) & (res.tokens < cfg.vocab)).all()),
          "token out of the vocabulary")
     need(torch.isfinite(res.logits.float()).all().item(), "non-finite logits")
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        LS.serve(cfg, model, prompt, G)
-    busy_ms = sum(a.self_device_time_total for a in prof.key_averages()) / 1e3
-    kernels = sum(1 for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy_ms, kernels = device_profile(lambda: LS.serve(cfg, model, prompt, G))
     bound_ms = QWEN3_BYTES / HBM_BYTES_PER_S * 1e3
     print(json.dumps({
         "serve": f"{cfg.name} greedy decode, bf16", "batch": B, "prompt": P,
@@ -1886,6 +1909,7 @@ def serve_phase(gen) -> dict:
         "bound_source": "3,441,397,760 parameter bytes / 3.35 TB/s (data "
                         "sheet): arithmetic, not a measurement",
         "profiled_device_busy_ms": busy_ms,
+        "profiled_device_busy_ms_per_step": busy_ms / res.steps,
         "profiled_kernels_per_step": kernels / res.steps,
         "device_peak_gb": torch.cuda.max_memory_allocated() / 1e9,
         "launches": counts, "card": CARD}))
@@ -1910,6 +1934,266 @@ def serve_phase(gen) -> dict:
         errs[arch] = decode_vs_forward(scfg, M.init_params(scfg, gen), gen)
     print(json.dumps({"decode_vs_forward_smoke": errs, "atol": DEC_ATOL,
                       "rtol": DEC_RTOL}))
+    return total
+
+
+def tree_bytes(tree) -> int:
+    from repro_torch.core.pytree import tree_flatten
+
+    return sum(t.numel() * t.element_size() for t in tree_flatten(tree)[0])
+
+
+def on_card(tree) -> bool:
+    from repro_torch.core.pytree import tree_flatten
+
+    return all(t.device.type == "cuda" for t in tree_flatten(tree)[0])
+
+
+def device_profile(fn, calls: int = 1) -> tuple[float, float]:
+    """(device busy ms, device events: kernels, copies, fills) a call over
+    `calls` calls of `fn`, from `torch.profiler`: the device events'
+    durations summed.  (Summing `key_averages()` counts each kernel twice,
+    once under its own name and once under the operator that launched
+    it.)"""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    device = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.device_time for e in device) / 1e3
+    return busy_ms / calls, len(device) / calls
+
+
+def train_phase(gen) -> dict:
+    """Training on the card.  (1) Qwen3-1.7B at full width and depth, bf16,
+    AdamW, remat on: 20 steps through `launch.train.train` at the JAX
+    launcher's defaults, beside the FLOP bound; (2) microbatches=2 and int8
+    compression from one state; (3) the straggler-coded step at full
+    width: deterministic, and bitwise equal under stragglers {0}, {1},
+    {3}; {0, 1} refused before any kernel; (4) the launcher's
+    failure-injection scenario at smoke width on the card (the parity
+    encode and the degraded restore launch `ntt` and `gf_matmul`);
+    (5) every arch's smoke-width `value_and_grad`.  Each leg with the
+    launch counts set to 0 just before and read just after; returns each
+    kernel's launches summed."""
+    import contextlib
+    import io
+    import statistics
+    import tempfile
+
+    import torch
+
+    from repro_torch.coding import GradientCoder
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.core.pytree import tree_flatten, tree_map
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import train as LT
+    from repro_torch.models import model as M
+    from repro_torch.models.convert import to_reference
+    from repro_torch.obs import trace
+    from repro_torch.train import (init_state, make_straggler_train_step,
+                                   make_train_setup, make_train_step)
+
+    total = dict.fromkeys(DESIGNS, 0)
+    cfg = get_config(SERVE_ARCH)
+    need(cfg.remat, "the full config trains with remat")
+    B, S = TRAIN_BATCH, TRAIN_SEQ
+    opt, lr = make_train_setup(cfg, total_steps=TRAIN_STEPS, peak_lr=TRAIN_LR)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    box = {"state": init_state(cfg, gen, opt)}  # device None: the card
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    state = box["state"]
+    n_params = sum(t.numel() for t in tree_flatten(state.params)[0])
+    need(on_card(state), "train state off the card")
+    need(n_params == QWEN3_PARAMS, f"{n_params} parameters, not {QWEN3_PARAMS}")
+    need(tree_bytes(state) == QWEN3_STATE_BYTES,
+         f"{tree_bytes(state)} state bytes, not {QWEN3_STATE_BYTES}")
+    print(json.dumps({"train_model": cfg.name, "layers": cfg.n_layers,
+                      "d_model": cfg.d_model, "vocab": cfg.vocab,
+                      "params": n_params, "param_bytes": tree_bytes(state.params),
+                      "state_bytes": tree_bytes(state), "optimizer": "adamw",
+                      "remat": cfg.remat, "init_s": init_s, "card": CARD}))
+    del state
+
+    # -- (1) 20 plain steps through the launcher's loop --------------------
+    data = SyntheticLM(cfg.vocab, S, B)
+    step = make_train_step(cfg, opt)
+    torch.cuda.reset_peak_memory_stats()
+    res, wall, counts = counted(
+        "train", lambda: LT.train(box.pop("state"), lambda st, b, i: step(st, b),
+                                  data, TRAIN_STEPS, lr=lr), total)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = res.losses
+    need(len(losses) == TRAIN_STEPS and all(np.isfinite(losses)),
+         f"losses {losses}")
+    need(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    need(on_card(res.state) and int(res.state.step) == TRAIN_STEPS,
+         "trained state off the card")
+    ms = statistics.median(res.step_s[1:]) * 1e3
+    st = res.state
+    b0 = data.device_batch(0)
+    grads_like = tree_map(lambda p: torch.randn(p.shape, generator=gen,
+                                                device="cuda").to(p.dtype),
+                          st.params)
+    opt_ms = time_ms(lambda: opt.update(grads_like, st.opt_state, st.params,
+                                        st.step), reps=3)
+    del grads_like
+    vg_ms = time_ms(lambda: M.value_and_grad(cfg, st.params, b0), reps=3)
+    busy_ms, kernels = device_profile(lambda: step(st, b0), 2)
+    need(kernels > 0, "the profiler saw no kernel")
+    flop = 6 * QWEN3_PARAMS * B * S
+    print(json.dumps({
+        "train": f"{cfg.name} full width and depth, bf16, AdamW, remat",
+        "batch": B, "seq": S, "steps": TRAIN_STEPS, "peak_lr": TRAIN_LR,
+        "losses": losses, "wall_s": wall / 1e3,
+        "first_step_ms": res.step_s[0] * 1e3, "median_ms_per_step": ms,
+        "tokens_per_s": B * S / (ms / 1e3),
+        "flop_per_step": flop, "flop_per_step_remat": flop * 8 // 6,
+        "bound_ms": flop / BF16_FLOP_PER_S * 1e3,
+        "bound_ms_remat": flop * 8 / 6 / BF16_FLOP_PER_S * 1e3,
+        "bound_source": "6 (8 with remat) x 1,720,574,976 x 1024 tokens / "
+                        "989 TFLOP/s bf16 dense (data sheet, 700 W): "
+                        "arithmetic, not a measurement",
+        "value_and_grad_ms": vg_ms, "optimizer_update_ms": opt_ms,
+        "profiled_device_busy_ms_per_step": busy_ms,
+        "profiled_kernels_per_step": kernels,
+        "device_peak_gb": peak_gb, "launches": counts, "card": CARD}))
+    del res
+
+    # -- (2) microbatches and compression from one state -------------------
+    def one(fn):
+        new, m = fn(st, b0)
+        out = (float(m["loss"]), float(m["grad_norm"]))
+        need(on_card(new), "step result off the card")
+        return out
+
+    (l1, g1), _, _ = counted("step mb1", lambda: one(step), total)
+    (l2, g2), _, _ = counted("step mb2",
+                              lambda: one(make_train_step(cfg, opt, 2)), total)
+    (l3, g3), _, _ = counted(
+        "step int8", lambda: one(make_train_step(cfg, opt,
+                                                 compress_grads=True)), total)
+    need(abs(l2 - l1) <= 2e-2 * abs(l1), f"microbatched loss {l2} vs {l1}")
+    need(np.isfinite([l3, g3]).all(), f"compressed step {l3} {g3}")
+    print(json.dumps({"train_variants": cfg.name, "loss_mb1": l1,
+                      "loss_mb2": l2, "rtol": 2e-2, "grad_norm_mb1": g1,
+                      "grad_norm_mb2": g2, "loss_int8": l3,
+                      "grad_norm_int8": g3}))
+
+    # -- (3) the straggler-coded step at full width --------------------------
+    coder = GradientCoder(4, s=1)
+    coded = make_straggler_train_step(cfg, opt, coder)
+    walls, peaks = {}, {}
+
+    def coded_params(dead):
+        alive = np.isin(np.arange(4), list(dead), invert=True)
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        new, m = coded(st, b0, alive)
+        loss = m["loss"].clone()
+        torch.cuda.synchronize()
+        walls[str(sorted(dead))] = (time.perf_counter() - t) * 1e3
+        peaks[str(sorted(dead))] = torch.cuda.max_memory_allocated() / 1e9
+        need(on_card(new), "coded step result off the card")
+        return tree_flatten(new.params)[0], loss
+
+    ref, ref_loss = coded_params(())
+    again, again_loss = coded_params(())
+    need(torch.equal(ref_loss, again_loss)
+         and all(torch.equal(a, b) for a, b in zip(ref, again)),
+         "the all-alive coded step is not deterministic")
+    del again
+    for dead in ({0}, {1}, {3}):
+        got, loss = coded_params(dead)
+        need(torch.equal(loss, ref_loss)
+             and all(torch.equal(a, b) for a, b in zip(got, ref)),
+             f"stragglers {sorted(dead)}: params differ from all-alive")
+        del got
+    torch.cuda.synchronize()
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        try:
+            coded(st, b0, np.array([False, False, True, True]))
+            refused = False
+        except RuntimeError as exc:
+            refused = "fully straggled" in str(exc)
+        torch.cuda.synchronize()
+    launched = sum(1 for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    need(refused and launched == 0,
+         f"stragglers [0, 1]: refused={refused}, {launched} kernels")
+    print(json.dumps({"coded_step": cfg.name, "workers": 4, "s": 1,
+                      "batch": B, "deterministic": True,
+                      "bitwise_under": [[0], [1], [3]],
+                      "refused_before_launch": [0, 1],
+                      "wall_ms": walls, "device_peak_gb": peaks,
+                      "card": CARD}))
+    del ref, st, b0, step, coded
+    torch.cuda.empty_cache()
+
+    # -- (4) the launcher's failure-injection scenario, smoke width ---------
+    with tempfile.TemporaryDirectory() as td, trace.installed() as tr:
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            lres, wall, counts = counted(
+                "launcher", lambda: LT.main(LAUNCH_ARGV + ["--ckpt-dir", td]),
+                total)
+    text = out.getvalue()
+    print(text, end="")
+    for want in ("reconstructed from parity", "selfcheck OK", "done: final loss"):
+        need(want in text, f"launcher printed no {want!r}")
+    need(on_card(lres.state), "launcher state off the card after the restore")
+    need(counts["ntt"] >= 1 and counts["gf_matmul"] >= 1,
+         f"launcher leg launches {counts}")
+    spans: dict = {}
+    for e in tr.events():
+        key = f"{e.get('cat', '')}.{e['name']}"
+        spans[key] = spans.get(key, 0.0) + e["dur"] / 1e3
+    print(json.dumps({"launcher": "failure injection + stragglers, smoke width",
+                      "argv": LAUNCH_ARGV, "wall_s": wall / 1e3,
+                      "ckpt_ops_ms": [[op, s, sec * 1e3]
+                                      for op, s, sec in lres.ckpt_ops],
+                      "state_bytes": tree_bytes(lres.state),
+                      "stages_ms": spans, "launches": counts, "card": CARD}))
+    del lres
+
+    # -- (5) every arch at smoke width: one value_and_grad -----------------
+    finite = {}
+    for arch in ARCH_IDS:
+        if arch == "paper_rs":
+            continue
+        scfg = get_config(arch).smoke()
+        params = to_reference(M.init_params(scfg, gen))
+        batch = {"tokens": torch.randint(0, scfg.vocab, (2, 32), generator=gen,
+                                         device="cuda"),
+                 "labels": torch.randint(0, scfg.vocab, (2, 32), generator=gen,
+                                         device="cuda")}
+        if scfg.family == "vlm":
+            batch["vision_embeds"] = torch.randn(
+                (2, scfg.n_patches, scfg.d_model), generator=gen, device="cuda")
+        if scfg.family == "encdec":
+            batch["frames"] = torch.randn((2, scfg.n_frames, scfg.d_model),
+                                          generator=gen, device="cuda")
+        loss, grads = M.value_and_grad(scfg, params, batch)
+        need(on_card(grads), f"{arch}: gradients off the card")
+        need(all(torch.isfinite(g.float()).all().item()
+                 for g in tree_flatten(grads)[0]), f"{arch}: non-finite grads")
+        new = tree_map(lambda p, g: p - 0.5 * g.to(p.dtype), params, grads)
+        loss2 = float(M.loss_fn(scfg, new, batch))
+        need(np.isfinite(loss2), f"{arch}: non-finite loss after SGD")
+        finite[arch] = [float(loss), loss2]
+    print(json.dumps({"value_and_grad_smoke": finite, "grads_finite": True}))
     return total
 
 
@@ -1965,7 +2249,7 @@ def main() -> int:
     simulator_phase()
     for phase in (solve_phase, lambda: checkpoint_phase(gen),
                   lambda: coding_phase(gen), service_phase,
-                  lambda: serve_phase(gen)):
+                  lambda: serve_phase(gen), lambda: train_phase(gen)):
         for name, n in phase().items():
             launches[name] += n
 

@@ -45,58 +45,64 @@ class TreeDef:
         return f"{self.node.__name__}({inner})"
 
 
+# The walkers are module-level functions that take their accumulators as
+# arguments: a nested recursive function refers to itself through its
+# closure, a reference cycle that would keep every leaf it collected
+# alive until the garbage collector runs (a train step's whole new state).
+
+def _flatten(node, leaves: list) -> TreeDef:
+    kind = type(node)  # exact types: a subclass is a leaf, as in JAX
+    if node is None:
+        return TreeDef("none")
+    if kind is OrderedDict:
+        keys = tuple(node)
+        return TreeDef("odict", keys,
+                       tuple(_flatten(node[k], leaves) for k in keys))
+    if kind is dict or kind is defaultdict:
+        keys = tuple(sorted(node))
+        return TreeDef("dict" if kind is dict else "ddict",
+                       keys if kind is dict
+                       else (node.default_factory,) + keys,
+                       tuple(_flatten(node[k], leaves) for k in keys))
+    if kind is list:
+        return TreeDef("list", None, tuple(_flatten(c, leaves) for c in node))
+    if kind is tuple or (isinstance(node, tuple)
+                         and hasattr(kind, "_fields")):  # namedtuple
+        return TreeDef("tuple", kind, tuple(_flatten(c, leaves) for c in node))
+    leaves.append(node)
+    return TreeDef("leaf")
+
+
 def tree_flatten(tree: Any) -> tuple[list, TreeDef]:
     """(leaves, treedef) in the JAX package's leaf order."""
     leaves: list = []
-
-    def walk(node) -> TreeDef:
-        kind = type(node)  # exact types: a subclass is a leaf, as in JAX
-        if node is None:
-            return TreeDef("none")
-        if kind is OrderedDict:
-            keys = tuple(node)
-            return TreeDef("odict", keys, tuple(walk(node[k]) for k in keys))
-        if kind is dict or kind is defaultdict:
-            keys = tuple(sorted(node))
-            return TreeDef("dict" if kind is dict else "ddict",
-                           keys if kind is dict
-                           else (node.default_factory,) + keys,
-                           tuple(walk(node[k]) for k in keys))
-        if kind is list:
-            return TreeDef("list", None, tuple(walk(c) for c in node))
-        if kind is tuple or (isinstance(node, tuple)
-                             and hasattr(kind, "_fields")):  # namedtuple
-            return TreeDef("tuple", kind, tuple(walk(c) for c in node))
-        leaves.append(node)
-        return TreeDef("leaf")
-
-    treedef = walk(tree)
+    treedef = _flatten(tree, leaves)
     return leaves, treedef
+
+
+def _build(td: TreeDef, it):
+    if td.kind == "leaf":
+        return next(it)
+    if td.kind == "none":
+        return None
+    kids = [_build(c, it) for c in td.children]
+    if td.kind == "dict":
+        return dict(zip(td.node, kids))
+    if td.kind == "odict":
+        return OrderedDict(zip(td.node, kids))
+    if td.kind == "ddict":
+        return defaultdict(td.node[0], zip(td.node[1:], kids))
+    if td.kind == "list":
+        return kids
+    if td.node is tuple:
+        return tuple(kids)
+    return td.node(*kids)  # namedtuple
 
 
 def tree_unflatten(treedef: TreeDef, leaves) -> Any:
     """The tree of `treedef`'s structure holding `leaves` in order."""
     it = iter(leaves)
-
-    def build(td: TreeDef):
-        if td.kind == "leaf":
-            return next(it)
-        if td.kind == "none":
-            return None
-        kids = [build(c) for c in td.children]
-        if td.kind == "dict":
-            return dict(zip(td.node, kids))
-        if td.kind == "odict":
-            return OrderedDict(zip(td.node, kids))
-        if td.kind == "ddict":
-            return defaultdict(td.node[0], zip(td.node[1:], kids))
-        if td.kind == "list":
-            return kids
-        if td.node is tuple:
-            return tuple(kids)
-        return td.node(*kids)  # namedtuple
-
-    tree = build(treedef)
+    tree = _build(treedef, it)
     if next(it, _END) is not _END:
         raise ValueError("more leaves than the tree structure holds")
     return tree
@@ -111,3 +117,29 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
             raise ValueError(f"tree structures differ: {treedef} vs {td}")
     return tree_unflatten(treedef, [fn(*xs) for xs in zip(
         leaves, *(o[0] for o in others))])
+
+
+def _up_to(td: TreeDef, node, out: list) -> None:
+    if td.kind == "leaf":
+        out.append(node)
+    elif td.kind in ("dict", "odict", "ddict"):
+        keys = td.node[1:] if td.kind == "ddict" else td.node
+        if set(keys) != set(node):
+            raise ValueError(f"keys {sorted(node)} differ from {sorted(keys)}")
+        for key, child in zip(keys, td.children):
+            _up_to(child, node[key], out)
+    elif td.kind != "none":
+        if len(node) != len(td.children):
+            raise ValueError(f"{len(node)} children, the structure has "
+                             f"{len(td.children)}")
+        for child, sub in zip(td.children, node):
+            _up_to(child, sub, out)
+
+
+def flatten_up_to(treedef: TreeDef, tree: Any) -> list:
+    """The subtrees of `tree` at `treedef`'s leaf positions, in leaf order
+    (JAX's `treedef.flatten_up_to`): an optimizer state holding one dict
+    per parameter yields those dicts."""
+    out: list = []
+    _up_to(treedef, tree, out)
+    return out

@@ -1,0 +1,3 @@
+from .pipeline import SyntheticLM, make_batch_specs
+
+__all__ = ["SyntheticLM", "make_batch_specs"]

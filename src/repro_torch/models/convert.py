@@ -10,6 +10,12 @@ bf16 as `ml_dtypes.bfloat16`) or of `to_reference`'s output.
 Since the leaves, their dtypes and `core.pytree`'s leaf order are JAX's,
 `ckpt.checkpoint.tree_to_bytes(to_reference(m))` is byte for byte the JAX
 package's `tree_to_bytes` of the same weights.
+
+`bind(model, tree)` maps the `Model`'s parameter names to the tree's
+tensors without copying: a stacked leaf is cut into per-layer views by one
+`torch.unbind` (whose backward is one `stack`, where indexing each layer
+would cost a full-size zero tensor a layer).  `models.model.forward` runs
+a tree through `torch.func.functional_call` on it.
 """
 from __future__ import annotations
 
@@ -70,12 +76,36 @@ def to_reference(model: Model) -> dict:
     return tree
 
 
+def bind(model: Model, tree: dict) -> dict[str, torch.Tensor]:
+    """{parameter name of `model`: the tensor of `tree` it stands for}.
+    Raises ValueError when the tree's leaf paths are not the model's."""
+    names = {id(p): name for name, p in model.named_parameters()}
+    leaves = list(_leaves(model))
+    want = {path for path, _, _ in leaves}
+    have = set(_paths(tree))
+    if want != have:
+        raise ValueError(f"tree leaves differ from the model's: missing "
+                         f"{sorted(want - have)}, extra {sorted(have - want)}")
+    views: dict[tuple, tuple] = {}
+    out = {}
+    for path, idx, p in leaves:
+        leaf = tree
+        for key in path:
+            leaf = leaf[key]
+        if idx is not None:
+            if path not in views:
+                views[path] = torch.unbind(leaf, 0)
+            leaf = views[path][idx]
+        out[names[id(p)]] = leaf
+    return out
+
+
 def _as_tensor(leaf) -> torch.Tensor:
     if isinstance(leaf, torch.Tensor):
         return leaf
-    arr = np.ascontiguousarray(leaf)
-    if not arr.flags.writeable:  # jax.device_get's arrays; torch warns
-        arr = arr.copy()
+    arr = np.asarray(leaf)  # (np.ascontiguousarray makes 0-d arrays 1-d)
+    if not (arr.flags.c_contiguous and arr.flags.writeable):
+        arr = arr.copy()  # jax.device_get's arrays are read-only; torch warns
     if arr.dtype.name == "bfloat16":  # ml_dtypes: torch.from_numpy refuses it
         return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
     return torch.from_numpy(arr)

@@ -5,8 +5,11 @@
 for whisper, of encoder layers), with the JAX package's parameter names:
 `models.convert.to_reference` gives its tree in JAX's layout, stacked
 layers and all.  The functions below keep the JAX names and signatures
-(`params` is the `Model`), and run eagerly, a Python loop over layers
-where JAX scans a stacked tree.
+and run eagerly, a Python loop over layers where JAX scans a stacked
+tree.  `params` is a `Model`, or for `forward`, `loss_fn` and
+`value_and_grad` also JAX's tree of tensors (the training state's
+layout): the model then runs on per-layer views of the stacked leaves
+(`convert.bind`), so the gradients come back as JAX's tree.
 
 Families:
   dense  — llama-style decoder (qwen3*, minicpm, qwen1.5)
@@ -19,14 +22,21 @@ Families:
 
 Built on `device="meta"`, a `Model` has every shape and dtype and holds no
 memory: the counterpart of `jax.eval_shape(init_params)` (kimi-k2 has 1T
-parameters).  `cfg.remat` is not used: nothing here takes gradients yet.
+parameters).  A `Model`'s own parameters take no gradient (they are
+serving's weights); training differentiates the tree's leaves.  With
+`cfg.remat` and gradients on, each decoder layer runs under
+`torch.utils.checkpoint` (JAX: `jax.checkpoint` around the scanned layer
+body): its activations are recomputed in the backward, exactly, since the
+model has no dropout and no RNG.
 """
 from __future__ import annotations
 
 import math
+import threading
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .config import ArchConfig
 from .layers import MLP, Attention, MoE, RMSNorm, _dtype, dense_init
@@ -150,6 +160,11 @@ class Model(nn.Module):
     def w_out(self, cfg: ArchConfig) -> torch.Tensor:
         return self.embed.T if cfg.tie_embeddings else self.unembed
 
+    def forward(self, cfg: ArchConfig, batch: dict) -> torch.Tensor:
+        """The logits: `forward(cfg, self, batch)`, for
+        `torch.func.functional_call`."""
+        return forward(cfg, self, batch)
+
 
 def init_params(cfg: ArchConfig, generator: torch.Generator | None = None,
                 device=None) -> Model:
@@ -184,12 +199,50 @@ def encode_frames(cfg: ArchConfig, params: Model, frames):
     return params.enc_ln_f(x, cfg.norm_eps)
 
 
-@torch.no_grad()
-def forward(cfg: ArchConfig, params: Model, batch: dict) -> torch.Tensor:
+_SKELETONS = threading.local()
+
+
+def _skeleton(cfg: ArchConfig) -> Model:
+    """A `Model` of `cfg` on the meta device, one per thread and config:
+    `functional_call` swaps tensors into the module it is given."""
+    cache = _SKELETONS.__dict__.setdefault("models", {})
+    if cfg not in cache:
+        cache[cfg] = init_params(cfg, device="meta")
+    return cache[cfg]
+
+
+def _layer_call(layer: "Layer", names: tuple, cfg: ArchConfig, x, positions,
+                enc_out, *tensors):
+    """`layer` on the given parameter tensors: what remat recomputes in the
+    backward, when an enclosing `functional_call` has ended."""
+    return torch.func.functional_call(layer, dict(zip(names, tensors)),
+                                      (cfg, x, positions, enc_out))
+
+
+def _run_stack(cfg: ArchConfig, layers, x, positions, enc_out=None):
+    remat = cfg.remat and torch.is_grad_enabled()
+    for layer in layers:
+        if remat:
+            names, tensors = zip(*layer.named_parameters())
+            x = checkpoint(_layer_call, layer, names, cfg, x, positions,
+                           enc_out, *tensors, use_reentrant=False)
+        else:
+            x = layer(cfg, x, positions, enc_out)
+    return x
+
+
+def forward(cfg: ArchConfig, params, batch: dict) -> torch.Tensor:
     """Returns logits (B, S_text, vocab).
 
+    params: a `Model`, or JAX's parameter tree of tensors.
     batch: tokens (B, S_text) integer; optional vision_embeds (B, P, D)
     [vlm], frames (B, F, D) [encdec]."""
+    if isinstance(params, dict):
+        from .convert import bind
+
+        model = _skeleton(cfg)
+        return torch.func.functional_call(model, bind(model, params),
+                                          (cfg, batch), strict=True)
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = params.embed[tokens] * cfg.scale_emb
@@ -203,17 +256,16 @@ def forward(cfg: ArchConfig, params: Model, batch: dict) -> torch.Tensor:
     if cfg.family == "encdec":
         enc_out = encode_frames(cfg, params, batch["frames"].to(x.dtype))
         x = x + params.dec_pos[:S][None]
-    for layer in params.layers:
-        x = layer(cfg, x, positions, enc_out)
+    x = _run_stack(cfg, params.layers, x, positions, enc_out)
     x = params.ln_f(x, cfg.norm_eps)
     if vision:
         x = x[:, -S:]  # logits over text positions only
     return (x @ params.w_out(cfg)) / cfg.logit_scale
 
 
-def loss_fn(cfg: ArchConfig, params: Model, batch: dict) -> torch.Tensor:
-    """Mean token cross-entropy (forward only: no backward in the port
-    yet)."""
+def loss_fn(cfg: ArchConfig, params, batch: dict) -> torch.Tensor:
+    """Mean token cross-entropy (float32), masked by an optional
+    `loss_mask`."""
     logits = forward(cfg, params, batch).float()
     labels = batch["labels"]
     lse = torch.logsumexp(logits, dim=-1)
@@ -223,6 +275,23 @@ def loss_fn(cfg: ArchConfig, params: Model, batch: dict) -> torch.Tensor:
     if mask is None:
         mask = torch.ones_like(labels, dtype=torch.float32)
     return -(ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def value_and_grad(cfg: ArchConfig, params: dict, batch: dict):
+    """(loss, grads): `jax.value_and_grad(loss_fn)` on JAX's parameter
+    tree.  The grads are a tree of the same structure, each leaf in its
+    parameter's dtype; a leaf the loss does not reach gets zeros, as in
+    JAX.  `params` is read, never changed."""
+    from ..core.pytree import tree_flatten, tree_unflatten
+
+    leaves, treedef = tree_flatten(params)
+    xs = [p.detach().requires_grad_() for p in leaves]
+    with torch.enable_grad():
+        loss = loss_fn(cfg, tree_unflatten(treedef, xs), batch)
+        grads = torch.autograd.grad(loss, xs, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(leaves, grads)]
+    return loss.detach(), tree_unflatten(treedef, grads)
 
 
 # ---------------------------------------------------------------------------

@@ -39,11 +39,23 @@ def _causal_conv(conv_w, conv_b, cfg: ArchConfig, xbc, conv_state=None):
     return out, full[:, -(K - 1):, :]
 
 
+def _cumsum(x, dim: int):
+    """`torch.cumsum`, but on a CUDA tensor under
+    `torch.use_deterministic_algorithms` (CUDA's floating cumsum has no
+    deterministic kernel and raises there; the straggler-coded train step
+    turns the mode on) a product with a triangular matrix of ones."""
+    if x.is_cuda and torch.are_deterministic_algorithms_enabled():
+        n = x.shape[dim]
+        tri = torch.ones((n, n), dtype=x.dtype, device=x.device).triu()
+        return (x.movedim(dim, -1) @ tri).movedim(-1, dim)
+    return torch.cumsum(x, dim=dim)
+
+
 def _segsum(x):
     """x: (..., Q) -> (..., Q, Q) lower-tri cumulative sums:
     L[i,j] = sum_{j<t<=i} x_t, -inf above the diagonal."""
     Q = x.shape[-1]
-    c = torch.cumsum(x, dim=-1)
+    c = _cumsum(x, -1)
     diff = c[..., :, None] - c[..., None, :]
     mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
     return torch.where(mask, diff, -torch.inf)
@@ -81,7 +93,7 @@ def ssd_chunked(cfg: ArchConfig, xh, Bm, Cm, dt, A, initial_state=None):
     y_intra = _einsum("bchqk,bckh,bckhp->bcqhp", scores, dtc, xc)
 
     # ---- chunk states + inter-chunk recurrence ---------------------------
-    dA_cum = torch.cumsum(dA, dim=2)                        # (B, nc, Q, H)
+    dA_cum = _cumsum(dA, 2)                                # (B, nc, Q, H)
     decay_to_end = torch.exp(dA_cum[:, :, -1:, :] - dA_cum)
     states = _einsum("bcqn,bcqh,bcqhp->bchnp",
                      Bc, dtc * decay_to_end, xc)            # (B, nc, H, N, P)

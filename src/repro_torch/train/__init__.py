@@ -1,5 +1,9 @@
-"""Serving steps of the port (`train.serve`); the training half of the
-JAX package's `train/` is not ported yet."""
+"""Training and serving steps of the port (the JAX package's `train/`)."""
 from . import serve
+from .coded_step import StragglerInjector, make_straggler_train_step
+from .state import TrainState, abstract_state, init_state, make_train_setup
+from .train_loop import make_eval_step, make_train_step
 
-__all__ = ["serve"]
+__all__ = ["TrainState", "init_state", "abstract_state", "make_train_setup",
+           "make_train_step", "make_eval_step", "make_straggler_train_step",
+           "StragglerInjector", "serve"]

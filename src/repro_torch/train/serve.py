@@ -9,6 +9,7 @@ from ..models.config import ArchConfig
 
 
 def make_prefill_step(cfg: ArchConfig):
+    @torch.no_grad()
     def prefill(params, batch):
         return M.forward(cfg, params, batch)
 

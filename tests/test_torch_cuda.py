@@ -628,3 +628,97 @@ def test_cuda_selfcheck_launches_ntt_and_gf_matmul(cuda_device, degraded, capsys
     assert np.array_equal(full, LS._coded_selfcheck(tree, 8, 2, degraded=degraded,
                                                     device="cpu"))
     assert capsys.readouterr().out.count("coded self-check OK") == 2
+
+
+# ---------------------------------------------------------------------------
+# training on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", _model_archs())
+def test_cuda_smoke_train_step(cuda_device, arch):
+    """One `value_and_grad` at smoke width on the card (bf16): every leaf's
+    gradient on the card and finite; after one SGD update the loss is
+    still finite (`tests/test_archs.py::test_smoke_train_step`)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.pytree import tree_flatten, tree_map
+    from repro_torch.models import model as M
+    from repro_torch.models.convert import to_reference
+
+    cfg = get_config(arch).smoke()
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    params = to_reference(M.init_params(cfg, gen, cuda_device))
+    B, S = 2, 32
+    batch = {"tokens": torch.randint(0, cfg.vocab, (B, S), generator=gen,
+                                     device=cuda_device),
+             "labels": torch.randint(0, cfg.vocab, (B, S), generator=gen,
+                                     device=cuda_device)}
+    if cfg.family == "vlm":
+        batch["vision_embeds"] = torch.randn(
+            (B, cfg.n_patches, cfg.d_model), generator=gen, device=cuda_device)
+    if cfg.family == "encdec":
+        batch["frames"] = torch.randn((B, cfg.n_frames, cfg.d_model),
+                                      generator=gen, device=cuda_device)
+    loss, grads = M.value_and_grad(cfg, params, batch)
+    assert torch.isfinite(loss)
+    for g, p in zip(tree_flatten(grads)[0], tree_flatten(params)[0]):
+        assert g.device.type == "cuda" and g.dtype == p.dtype
+        assert torch.isfinite(g.float()).all()
+    new = tree_map(lambda p, g: p - 0.5 * g.to(p.dtype), params, grads)
+    assert torch.isfinite(M.loss_fn(cfg, new, batch))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen3_1_7b", "phi3_5_moe_42b_a6_6b",
+                                  "mamba2_780m", "hymba_1_5b"])
+def test_cuda_coded_step_is_deterministic_and_bitwise(cuda_device, arch):
+    """The all-alive coded step twice from one state gives the same bits,
+    and every pattern of at most s stragglers gives the all-alive params
+    (remat on: the full configs' setting)."""
+    import dataclasses
+
+    from repro_torch.coding import GradientCoder
+    from repro_torch.configs import get_config
+    from repro_torch.core.pytree import tree_flatten
+    from repro_torch.data import SyntheticLM
+    from repro_torch.train import (init_state, make_straggler_train_step,
+                                   make_train_setup)
+
+    cfg = dataclasses.replace(get_config(arch).smoke(), remat=True)
+    opt, _ = make_train_setup(cfg, total_steps=20, peak_lr=5e-3)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    state = init_state(cfg, gen, opt, cuda_device)
+    batch = SyntheticLM(cfg.vocab, 16, 8).device_batch(0, cuda_device)
+    step = make_straggler_train_step(cfg, opt, GradientCoder(4, s=1))
+    was = torch.are_deterministic_algorithms_enabled()
+    ref, _ = step(state, batch)
+    assert torch.are_deterministic_algorithms_enabled() == was
+    leaves = tree_flatten(ref)[0]
+    assert all(t.device.type == "cuda" for t in leaves)
+    for dead in (None, [0], [1], [3], [0, 2]):
+        alive = None if dead is None else np.isin(np.arange(4), dead, invert=True)
+        got, _ = step(state, batch, alive)
+        assert all(torch.equal(a, b) for a, b in zip(tree_flatten(got)[0], leaves))
+    with pytest.raises(RuntimeError, match="fully straggled"):
+        step(state, batch, np.array([False, False, True, True]))
+
+
+@pytest.mark.cuda
+def test_cuda_train_launcher_failure_injection(cuda_device, tmp_path, capsys):
+    """The JAX launcher's failure-injection scenario on the card: the
+    parity encode launches the NTT kernel, the degraded restore
+    `gf_matmul`, and the restored state is back on the card."""
+    from repro_torch.core.pytree import tree_flatten
+    from repro_torch.launch import train as LT
+
+    gm, nt = gf_matmul.launches, ntt.launches_by_kernel["registers"]
+    res = LT.main(["--steps", "14", "--ckpt-dir", str(tmp_path / "ck"),
+                   "--ckpt-every", "10", "--fail-at", "12,1,3",
+                   "--seq-len", "32", "--batch", "4", "--stragglers", "1",
+                   "--coded-workers", "4", "--straggler-selfcheck"])
+    out = capsys.readouterr().out
+    assert "reconstructed from parity" in out and "selfcheck OK" in out
+    assert "done: final loss" in out
+    assert ntt.launches_by_kernel["registers"] > nt
+    assert gf_matmul.launches > gm
+    assert all(t.device.type == "cuda" for t in tree_flatten(res.state)[0])

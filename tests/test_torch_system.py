@@ -187,7 +187,8 @@ def test_port_imports_neither_jax_nor_reference():
             "repro_torch.ckpt, repro_torch.coding, "
             "repro_torch.launch.service, repro_torch.launch.serve, "
             "repro_torch.configs, repro_torch.models.convert, "
-            "repro_torch.train.serve\n"
+            "repro_torch.train.serve, repro_torch.optim, repro_torch.data, "
+            "repro_torch.train, repro_torch.launch.train\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "assert not bad, bad\n")
@@ -217,7 +218,14 @@ def test_port_sources_import_no_jax_or_reference():
             "src/repro_torch/launch/service.py",
             "src/repro_torch/launch/serve.py",
             "src/repro_torch/models/model.py",
-            "src/repro_torch/configs/qwen3_1_7b.py"} <= scanned
+            "src/repro_torch/configs/qwen3_1_7b.py",
+            "src/repro_torch/optim/optimizers.py",
+            "src/repro_torch/optim/schedules.py",
+            "src/repro_torch/data/pipeline.py",
+            "src/repro_torch/train/state.py",
+            "src/repro_torch/train/train_loop.py",
+            "src/repro_torch/train/coded_step.py",
+            "src/repro_torch/launch/train.py"} <= scanned
     for path in files:
         roots = set(_imported_roots(path))
         assert not roots & {"jax", "jaxlib", "repro"}, (path, roots)
