@@ -105,10 +105,24 @@
    checkpoint op its wall and the spans by stage); one `value_and_grad`
    of every arch at smoke width, every gradient finite, the loss finite
    after one SGD step;
-13. prints the per-kernel JSON line (launches summed over every path) and,
+13. dist phase: (a) the port's dry-run (`repro_torch.launch.dryrun`), host
+   only, in three subprocesses started together with no card visible:
+   qwen3_1_7b x decode_32k and x train_4k on the 16x16 mesh, mamba2_780m x
+   long_500k on the 2x16x16 multi-pod mesh (fake process groups of 256
+   and 512 ranks, meta DTensors); per cell its per-device FLOPs, bytes and
+   collective bytes by kind, the dominant term and both rooflines (the JAX
+   package's TPU v5e model and the H100 data sheet); (b) `constrain` on
+   the card: the training phase's full-width state, a batch and a decode
+   cache as DTensors on a 1x1 ("data", "model") mesh of a one-rank NCCL
+   group, placed by `dist.sharding`'s specs with `from_local` (no copy);
+   `value_and_grad`, one train step and 8 greedy decode steps inside
+   `activation_sharding`, under deterministic algorithms, the loss, every
+   gradient, the new parameters and every decode logit bitwise the plain
+   run's; ms per step and per token, DTensor beside plain, in turns;
+14. prints the per-kernel JSON line (launches summed over every path) and,
    last, the device JSON line.
 
-Each path of phases 4-12 is driven with the launch counts set to 0 just
+Each path of phases 4-13 is driven with the launch counts set to 0 just
 before it and read just after.
 
 The kernels: `gf_matmul` (int8 tensor cores, 8-bit limbs), `gf_matmul_batched`
@@ -176,6 +190,14 @@ LAUNCH_ARGV = ["--steps", "25", "--ckpt-every", "10", "--fail-at", "12,1,3",
                "--peak-lr", "5e-3", "--seq-len", "64", "--batch", "4",
                "--stragglers", "1", "--coded-workers", "4",
                "--straggler-selfcheck", "--device", "cuda"]
+# the dist phase: (a) the port's dry-run, host only, on three cells of the
+# JAX package's launcher tests and its training cell; (b) constrain on the
+# card: one DTensor train step and DIST_DECODE greedy decode steps
+DRYRUN_CELLS = [("qwen3_1_7b", "decode_32k", "single"),
+                ("qwen3_1_7b", "train_4k", "single"),
+                ("mamba2_780m", "long_500k", "multi")]
+DIST_DECODE = 8
+DIST_BACKEND, DIST_MESH_DEVICE = "nccl", "cuda"
 CARD = ""             # nvidia-smi's name and power limit, set by main()
 
 # Peak rates of one H100 SXM (NVIDIA's data sheet): 3.35 TB/s of HBM3,
@@ -1981,7 +2003,8 @@ def train_phase(gen) -> dict:
     encode and the degraded restore launch `ntt` and `gf_matmul`);
     (5) every arch's smoke-width `value_and_grad`.  Each leg with the
     launch counts set to 0 just before and read just after; returns each
-    kernel's launches summed."""
+    kernel's launches summed and the trained full-width state (the dist
+    phase's)."""
     import contextlib
     import io
     import statistics
@@ -2139,7 +2162,7 @@ def train_phase(gen) -> dict:
                       "refused_before_launch": [0, 1],
                       "wall_ms": walls, "device_peak_gb": peaks,
                       "card": CARD}))
-    del ref, st, b0, step, coded
+    del ref, b0, step, coded  # st goes on to the dist phase
     torch.cuda.empty_cache()
 
     # -- (4) the launcher's failure-injection scenario, smoke width ---------
@@ -2194,6 +2217,237 @@ def train_phase(gen) -> dict:
         need(np.isfinite(loss2), f"{arch}: non-finite loss after SGD")
         finite[arch] = [float(loss), loss2]
     print(json.dumps({"value_and_grad_smoke": finite, "grads_finite": True}))
+    return total, st
+
+
+def dryrun_phase() -> None:
+    """(a) The port's dry-run, host only: each cell of DRYRUN_CELLS in its
+    own `python -m repro_torch.launch.dryrun`, all started together with
+    no card visible (a fake process group of 256 or 512 ranks, meta
+    DTensors); one line per cell with its per-device census and both
+    rooflines."""
+    import tempfile
+
+    env = dict(os.environ, PYTHONPATH=SRC, CUDA_VISIBLE_DEVICES="")
+    with tempfile.TemporaryDirectory() as out:
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+             "--shape", shape, "--mesh", mesh, "--out-dir", out, "--force"],
+            env=env, cwd=ROOT, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+            for arch, shape, mesh in DRYRUN_CELLS]
+        try:
+            logs = [p.communicate(timeout=300)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - t0
+        for (arch, shape, mesh), p, log in zip(DRYRUN_CELLS, procs, logs):
+            name = f"{arch} x {shape} x {mesh}"
+            need(p.returncode == 0, f"dryrun {name}: rc {p.returncode}\n"
+                                    f"{log[-3000:]}")
+            with open(os.path.join(out, f"{arch}__{shape}__{mesh}.json")) as f:
+                cell = json.load(f)
+            need("error" not in cell, f"dryrun {name}: {cell.get('error')}")
+            need(cell["n_devices"] == (512 if mesh == "multi" else 256),
+                 f"dryrun {name}: {cell['n_devices']} devices")
+            need(cell["hlo_flops_per_device"] > 0, f"dryrun {name}: no FLOPs")
+            print(json.dumps({
+                "dryrun": name, "n_devices": cell["n_devices"],
+                "flops_per_device": cell["hlo_flops_per_device"],
+                "bytes_per_device": cell["hlo_bytes_per_device"],
+                "collective_bytes_per_device":
+                    cell["collectives"]["total"]["weighted_bytes"],
+                "collectives_by_kind": cell["collectives"]["per_kind"],
+                "dominant": cell["roofline"]["dominant"],
+                "roofline_tpu_v5e": cell["roofline"],
+                "roofline_h100": cell["roofline_h100"],
+                "model_flops_per_device": cell["model_flops_per_device"],
+                "useful_ratio": cell["useful_ratio"],
+                "argument_bytes": cell["memory"]["argument_bytes"],
+                "trace_s": cell["lower_s"]}))
+    print(json.dumps({"dryrun_cells": len(DRYRUN_CELLS), "wall_s": wall,
+                      "host_only": True}))
+
+
+def dtensor_equal(got, want) -> bool:
+    """Every leaf of `got` a DTensor whose local tensor equals the plain
+    leaf of `want` bitwise; prints the first leaf that is not."""
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.core.pytree import tree_flatten
+
+    a, b = tree_flatten(got)[0], tree_flatten(want)[0]
+    if len(a) != len(b):
+        print(json.dumps({"dtensor_mismatch": "leaves", "got": len(a),
+                          "want": len(b)}))
+        return False
+    for i, (x, y) in enumerate(zip(a, b)):
+        local = x.to_local() if isinstance(x, DTensor) else None
+        plain = (isinstance(local, torch.Tensor)
+                 and not isinstance(local, DTensor)
+                 and not isinstance(y, DTensor))
+        if plain and local.shape == y.shape and torch.equal(local, y):
+            continue
+        print(json.dumps({
+            "dtensor_mismatch": i, "got": type(x).__name__,
+            "local": type(local).__name__, "want": type(y).__name__,
+            "shape": list(y.shape),
+            "placements": str(getattr(x, "placements", None)),
+            "max_abs_diff": (local.float() - y.float()).abs().max().item()
+            if plain and local.shape == y.shape else None}))
+        return False
+    return True
+
+
+def constrain_phase(state, gen) -> dict:
+    """(b) `constrain` on the card: the training phase's full-width
+    Qwen3-1.7B state, a batch and a decode cache as DTensors on a 1x1
+    ("data", "model") mesh over a one-rank NCCL group (placed by the specs
+    with `from_local`: no copy), then `value_and_grad`, one train step and
+    DIST_DECODE greedy decode steps inside `activation_sharding`, each
+    against the plain run bitwise, under deterministic algorithms; ms per
+    step and per token with DTensor beside plain, in turns.  Returns the
+    kernels' launches (none is on this path)."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.pytree import tree_flatten
+    from repro_torch.data import SyntheticLM
+    from repro_torch.dist import activation_sharding
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch.mesh import mesh_axis_sizes
+    from repro_torch.models import model as M
+    from repro_torch.models.convert import holding
+    from repro_torch.train import make_train_setup, make_train_step
+
+    total = dict.fromkeys(DESIGNS, 0)
+    cfg = get_config(SERVE_ARCH)
+    n_params = sum(t.numel() for t in tree_flatten(state.params)[0])
+    need(n_params == QWEN3_PARAMS, f"{n_params} parameters, not {QWEN3_PARAMS}")
+    need(on_card(state), "train state off the card")
+    opt, _ = make_train_setup(cfg, total_steps=TRAIN_STEPS, peak_lr=TRAIN_LR)
+    step = make_train_step(cfg, opt)
+    batch = SyntheticLM(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH).device_batch(0)
+    first = torch.randint(0, cfg.vocab, (SERVE_BATCH,), generator=gen,
+                          device="cuda")
+
+    def greedy(model, cache, tok):
+        logits = []
+        for i in range(DIST_DECODE):
+            out, cache = M.decode_step(cfg, model, tok, i, cache)
+            logits.append(out)
+            tok = out.argmax(-1)
+        return logits
+
+    def walled(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3
+
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    t0 = time.perf_counter()
+    was = torch.are_deterministic_algorithms_enabled()
+    dist.init_process_group(DIST_BACKEND, store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        torch.use_deterministic_algorithms(True)
+        mesh = init_device_mesh(DIST_MESH_DEVICE, (1, 1),
+                                mesh_dim_names=("data", "model"))
+        sizes = mesh_axis_sizes(mesh)
+        sspec = type(state)(
+            shd.PartitionSpec(),
+            shd.param_specs(cfg, state.params, sizes, False),
+            shd.opt_state_specs(cfg, state.params, state.opt_state, sizes,
+                                False))
+        dstate = shd.from_local(state, sspec, mesh)
+        dbatch = shd.from_local(batch, shd.batch_specs(cfg, batch, sizes,
+                                                       False), mesh)
+        need(all(x.to_local().data_ptr() == y.data_ptr() for x, y in zip(
+            tree_flatten(dstate)[0], tree_flatten(state)[0])),
+             "from_local copied a leaf")
+
+        def scoped(fn):
+            def run():
+                with activation_sharding(mesh), implicit_replication():
+                    return fn()
+            return run
+
+        # value_and_grad: the loss and every gradient
+        (loss_p, grads_p), vg_p, _ = counted(
+            "dist vg plain", lambda: M.value_and_grad(cfg, state.params, batch),
+            total)
+        (loss_d, grads_d), vg_d, _ = counted(
+            "dist vg dtensor", scoped(
+                lambda: M.value_and_grad(cfg, dstate.params, dbatch)), total)
+        need(dtensor_equal(loss_d, loss_p), "DTensor loss differs")
+        need(dtensor_equal(grads_d, grads_p), "DTensor gradients differ")
+        n_grads = len(tree_flatten(grads_p)[0])
+        del grads_p, grads_d
+
+        # one train step: the loss, the grad norm, the new parameters
+        (new_p, m_p), step_p, _ = counted(
+            "dist step plain", lambda: step(state, batch), total)
+        params_p = new_p.params
+        del new_p
+        (new_d, m_d), step_d, _ = counted(
+            "dist step dtensor", scoped(lambda: step(dstate, dbatch)), total)
+        need(dtensor_equal(m_d["loss"], m_p["loss"])
+             and dtensor_equal(m_d["grad_norm"], m_p["grad_norm"]),
+             "DTensor step metrics differ")
+        need(dtensor_equal(new_d.params, params_p),
+             "DTensor step params differ")
+        del new_d, params_p
+
+        # ms per step in turns: plain, DTensor, DTensor, plain
+        turns = {"plain": [], "dtensor": []}
+        for kind in ("plain", "dtensor", "dtensor", "plain"):
+            fn = ((lambda: step(state, batch)) if kind == "plain"
+                  else scoped(lambda: step(dstate, dbatch)))
+            out, ms = walled(fn)
+            del out
+            turns[kind].append(ms)
+
+        # DIST_DECODE greedy decode steps, every step's logits
+        model_p, model_d = holding(cfg, state.params), holding(cfg,
+                                                               dstate.params)
+        cache = M.init_cache(cfg, SERVE_BATCH, DIST_DECODE)
+        logits_p, dec_p = walled(lambda: greedy(model_p, cache, first))
+        cache = M.init_cache(cfg, SERVE_BATCH, DIST_DECODE)
+        dcache = shd.from_local(cache, shd.cache_specs(cfg, cache, sizes,
+                                                       False), mesh)
+        dfirst = shd.from_local(first, shd.batch_specs(cfg, first, sizes,
+                                                       False), mesh)
+        logits_d, dec_d = walled(scoped(
+            lambda: greedy(model_d, dcache, dfirst)))
+        need(dtensor_equal(logits_d, logits_p), "DTensor decode logits differ")
+        del cache, dcache, model_p, model_d
+    finally:
+        torch.use_deterministic_algorithms(was)
+        dist.destroy_process_group()
+    need(not dist.is_initialized(), "process group left behind")
+    print(json.dumps({
+        "constrain_on_card": f"{cfg.name} full width and depth",
+        "mesh": "1x1 (data, model)", "backend": DIST_BACKEND,
+        "deterministic": True, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+        "bitwise": {"loss": True, "gradients": n_grads, "new_params": True,
+                    "decode_logits": DIST_DECODE},
+        "value_and_grad_ms": {"plain": vg_p, "dtensor_first": vg_d},
+        "step_ms": {"plain": step_p, "dtensor_first": step_d},
+        "step_ms_in_turns": turns,
+        "decode_ms_per_token": {"plain": dec_p / DIST_DECODE,
+                                "dtensor": dec_d / DIST_DECODE},
+        "phase_s": time.perf_counter() - t0, "launches": total,
+        "card": CARD}))
     return total
 
 
@@ -2249,9 +2503,15 @@ def main() -> int:
     simulator_phase()
     for phase in (solve_phase, lambda: checkpoint_phase(gen),
                   lambda: coding_phase(gen), service_phase,
-                  lambda: serve_phase(gen), lambda: train_phase(gen)):
+                  lambda: serve_phase(gen)):
         for name, n in phase().items():
             launches[name] += n
+    counts, state = train_phase(gen)
+    dryrun_phase()
+    counts = {k: n + counts[k] for k, n in constrain_phase(state, gen).items()}
+    del state
+    for name, n in counts.items():
+        launches[name] += n
 
     sources = {"gf_matmul": ("src/repro_torch/csrc/gf_matmul.cu",
                              "src/repro/kernels/gf_matmul.py:53"),

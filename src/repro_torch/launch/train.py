@@ -24,8 +24,12 @@ Fault tolerance:
     --straggler-selfcheck asserts that against the all-alive step.
 A restore comes back on the CPU; the state is moved to `--device` at once.
 
-Not ported: the JAX launcher's --production (a 16x16 device mesh) and its
-XLA flags.
+--production: in the JAX launcher the flag only prepends
+--xla_force_host_platform_device_count=512 to XLA_FLAGS (512 host devices
+for a production-mesh run); its step stays a plain `jax.jit`, so the
+losses do not change.  Here it is accepted and changes nothing: torch has
+no forced host devices, and the production meshes' shardings are traced
+by `launch.dryrun` on a fake process group instead.
 """
 from __future__ import annotations
 
@@ -193,6 +197,9 @@ def main(argv=None) -> TrainResult:
                     help="torch device of the model, the state and the "
                          "coding sessions; 'cpu' runs the kernels' plain "
                          "versions")
+    ap.add_argument("--production", action="store_true",
+                    help="accepted for the JAX launcher's CLI; changes "
+                         "nothing here (see the module docstring)")
     ap.add_argument("--log-every", type=int, default=10)
     args = ap.parse_args(argv)
 

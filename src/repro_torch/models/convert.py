@@ -15,7 +15,8 @@ package's `tree_to_bytes` of the same weights.
 tensors without copying: a stacked leaf is cut into per-layer views by one
 `torch.unbind` (whose backward is one `stack`, where indexing each layer
 would cost a full-size zero tensor a layer).  `models.model.forward` runs
-a tree through `torch.func.functional_call` on it.
+a tree through `torch.func.functional_call` on it; `holding(cfg, tree)`
+is a `Model` whose parameters are those views (decode on a tree).
 """
 from __future__ import annotations
 
@@ -94,10 +95,23 @@ def bind(model: Model, tree: dict) -> dict[str, torch.Tensor]:
             leaf = leaf[key]
         if idx is not None:
             if path not in views:
-                views[path] = torch.unbind(leaf, 0)
+                views[path] = torch.unbind(_whole_layer_axis(leaf), 0)
             leaf = views[path][idx]
         out[names[id(p)]] = leaf
     return out
+
+
+def _whole_layer_axis(leaf):
+    """`leaf`, gathered along its layer axis where it is a DTensor sharded
+    there (a spec may put "model" on it): DTensor cannot unbind a sharded
+    dimension."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if isinstance(leaf, DTensor) and any(p.is_shard(0)
+                                         for p in leaf.placements):
+        return leaf.redistribute(leaf.device_mesh, [
+            Replicate() if p.is_shard(0) else p for p in leaf.placements])
+    return leaf
 
 
 def _as_tensor(leaf) -> torch.Tensor:
@@ -136,4 +150,17 @@ def from_reference(cfg: ArchConfig, tree: dict, device=None) -> Model:
                     f"{'/'.join(path)}[{idx}]: {tuple(t.shape)} {t.dtype}, "
                     f"the model holds {tuple(p.shape)} {p.dtype}")
             p.copy_(t)
+    return model
+
+
+def holding(cfg: ArchConfig, tree: dict) -> Model:
+    """A `Model` of `cfg` whose parameters are `tree`'s tensors, with no
+    copy: each layer's are views of the stacked leaves (`bind`).  It runs
+    where the tensors are (DTensors among them: the dry-run decodes on
+    one); the parameters take no gradient."""
+    model = init_params(cfg, device="meta")
+    for name, t in bind(model, tree).items():
+        owner, _, leaf = name.rpartition(".")
+        model.get_submodule(owner)._parameters[leaf] = nn.Parameter(
+            t, requires_grad=False)
     return model

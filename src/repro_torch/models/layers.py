@@ -13,12 +13,13 @@ only in serving options (`quantize_kv`).
 What differs from JAX, and why:
 - `torch.einsum` refuses mixed dtypes where `jnp.einsum` promotes; `_einsum`
   casts every operand to the promoted dtype first (`jnp.result_type`).
+  Under a mesh it runs on each rank's shards (`dist.ctx.einsum`), and so
+  does attention (`_per_shard`): DTensor's einsum cannot always fold a
+  sharded batch of indices (XLA partitions einsums itself).
 - `jax.nn.gelu` is the tanh approximation; so is `act_fn("gelu")` here.
 - `jnp.repeat(k, rep, axis=2)` is `repeat_interleave`.
 - The decode cache is updated in place: `attention` writes the new token's
   K/V into the cache tensors it is given and returns them.
-- The JAX package's `dist.ctx.constrain` (a sharding hint, the identity on
-  one device) is left out.
 """
 from __future__ import annotations
 
@@ -30,6 +31,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..dist.ctx import (constrain, current_mesh, einsum, local_shard,
+                        split_heads)
 from .config import ArchConfig
 
 
@@ -43,7 +46,7 @@ def _einsum(eq: str, *ops: torch.Tensor) -> torch.Tensor:
     dt = ops[0].dtype
     for t in ops[1:]:
         dt = torch.promote_types(dt, t.dtype)
-    return torch.einsum(eq, *(t.to(dt) for t in ops))
+    return einsum(eq, *(t.to(dt) for t in ops))
 
 
 # ---------------------------------------------------------------------------
@@ -125,13 +128,35 @@ def act_fn(name: str):
 # attention (GQA; causal / sliding-window / cross / bidirectional)
 # ---------------------------------------------------------------------------
 
+def _per_shard(fn, q, k, v, *rest):
+    """`fn(q, k, v, *rest)`: attention, independent across batch rows and
+    heads.  Under a mesh, on DTensors, q, k and v are laid out with the
+    batch over the data axes and the heads over "model" (where they
+    divide), and `fn` runs on each rank's shards: the einsums inside fold
+    (batch, heads) into one dimension, which DTensor can shard by its
+    leading part only.  k and v hold as many heads as q."""
+    from torch.distributed.tensor import DTensor
+
+    if current_mesh() is None or not all(isinstance(t, DTensor)
+                                         for t in (q, k, v)):
+        return fn(q, k, v, *rest)
+    q, k, v = (constrain(t, "batch", None, "model", None) for t in (q, k, v))
+    assert q.placements == k.placements == v.placements
+    out = fn(local_shard(q), local_shard(k), local_shard(v), *rest)
+    return DTensor.from_local(out, q.device_mesh, q.placements,
+                              run_check=False)
+
+
 def _sdpa(q, k, v, mask, cfg: ArchConfig):
-    """q: (B,Sq,H,hd), k/v: (B,Skv,KV,hd), mask broadcastable (B,1,Sq,Skv)."""
+    """q: (B,Sq,H,hd), k/v: (B,Skv,KV,hd), mask broadcastable (1,1,Sq,Skv)."""
     rep = cfg.n_heads // cfg.n_kv_heads
     if rep > 1:
         k = k.repeat_interleave(rep, dim=2)
         v = v.repeat_interleave(rep, dim=2)
-    scale = 1.0 / math.sqrt(cfg.hd)
+    return _per_shard(_attend, q, k, v, mask, 1.0 / math.sqrt(cfg.hd))
+
+
+def _attend(q, k, v, mask, scale: float):
     logits = _einsum("bqhd,bkhd->bhqk", q, k).float() * scale
     if mask is not None:
         logits = torch.where(mask, logits, -1e30)
@@ -153,13 +178,17 @@ def _chunked_attention(q, k, v, cfg: ArchConfig, causal: bool, window: int):
 
     window > 0: each q chunk attends to one slice of width window + cq.
     Causal full attention visits and masks every kv chunk, as in JAX."""
-    B, Sq, H, hd = q.shape
-    Skv = k.shape[1]
-    rep = H // k.shape[2]
+    rep = q.shape[2] // k.shape[2]
     if rep > 1:
         k = k.repeat_interleave(rep, dim=2)
         v = v.repeat_interleave(rep, dim=2)
-    scale = 1.0 / math.sqrt(cfg.hd)
+    return _per_shard(_chunked, q, k, v, 1.0 / math.sqrt(cfg.hd), causal,
+                      window)
+
+
+def _chunked(q, k, v, scale: float, causal: bool, window: int):
+    B, Sq, H, hd = q.shape
+    Skv = k.shape[1]
     cq = min(_Q_CHUNK, Sq)
     nq = Sq // cq
     assert Sq % cq == 0
@@ -258,9 +287,9 @@ class Attention(nn.Module):
         q, k, v = xq @ self.wq, xkv @ self.wk, xkv @ self.wv
         if cfg.qkv_bias:
             q, k, v = q + self.bq, k + self.bk, v + self.bv
-        q = q.reshape(B, Sq, H, hd)
-        k = k.reshape(B, Skv, KV, hd)
-        v = v.reshape(B, Skv, KV, hd)
+        q = split_heads(q, (B, Sq, H, hd))
+        k = split_heads(k, (B, Skv, KV, hd))
+        v = split_heads(v, (B, Skv, KV, hd))
         if cfg.qk_norm:
             q = self.q_norm(q, cfg.norm_eps)
             k = self.k_norm(k, cfg.norm_eps)
@@ -279,7 +308,7 @@ class Attention(nn.Module):
         if mode == "cross":
             if cache is not None:
                 k, v = cache["k"], cache["v"]  # precomputed encoder KV
-                q = (x @ self.wq).reshape(B, Sq, cfg.n_heads, cfg.hd)
+                q = split_heads(x @ self.wq, (B, Sq, cfg.n_heads, cfg.hd))
                 if cfg.qk_norm:
                     q = self.q_norm(q, cfg.norm_eps)
                 out = _sdpa(q, k, v, None, cfg)
@@ -391,12 +420,18 @@ class MoE(nn.Module):
         p_idx = torch.where(keep, pos, cap - 1)
         src = torch.where(keep[..., None], x[:, tok_idx], 0)
         b_idx = torch.arange(B, device=x.device)[:, None].expand(B, S * k)
-        buckets = torch.zeros((B, E, cap, D), dtype=x.dtype, device=x.device)
-        buckets.index_put_((b_idx, e_idx, p_idx), src, accumulate=True)
+        # out of place: under DTensor `src` is one, the fresh zeros are not
+        buckets = torch.zeros((B, E, cap, D), dtype=x.dtype,
+                              device=x.device).index_put(
+            (b_idx, e_idx, p_idx), src, accumulate=True)
+        # group axis on data, expert axis on model: expert compute is fully
+        # partitioned over the whole mesh
+        buckets = constrain(buckets, "batch", "model", None, None)
 
         h = _einsum("gecd,edf->gecf", buckets, self.wg)
         h = act_fn(cfg.act)(h) * _einsum("gecd,edf->gecf", buckets, self.wu)
         out_buckets = _einsum("gecf,efd->gecd", h, self.wd)    # (B, E, cap, D)
+        out_buckets = constrain(out_buckets, "batch", "model", None, None)
 
         gathered = out_buckets[b_idx, e_idx, p_idx]            # (B, S*k, D)
         gathered = torch.where(keep[..., None], gathered, 0)

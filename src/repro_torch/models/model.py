@@ -38,6 +38,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..dist.ctx import constrain, lookup
 from .config import ArchConfig
 from .layers import MLP, Attention, MoE, RMSNorm, _dtype, dense_init
 from .ssm import Mamba2
@@ -245,7 +246,7 @@ def forward(cfg: ArchConfig, params, batch: dict) -> torch.Tensor:
                                           (cfg, batch), strict=True)
     tokens = batch["tokens"]
     B, S = tokens.shape
-    x = params.embed[tokens] * cfg.scale_emb
+    x = lookup(params.embed, tokens) * cfg.scale_emb
     positions = torch.arange(S, device=x.device)[None]
     enc_out = None
     vision = cfg.family == "vlm" and "vision_embeds" in batch
@@ -256,11 +257,15 @@ def forward(cfg: ArchConfig, params, batch: dict) -> torch.Tensor:
     if cfg.family == "encdec":
         enc_out = encode_frames(cfg, params, batch["frames"].to(x.dtype))
         x = x + params.dec_pos[:S][None]
+    x = constrain(x, "batch", None, None)
     x = _run_stack(cfg, params.layers, x, positions, enc_out)
     x = params.ln_f(x, cfg.norm_eps)
     if vision:
         x = x[:, -S:]  # logits over text positions only
-    return (x @ params.w_out(cfg)) / cfg.logit_scale
+    logits = (x @ params.w_out(cfg)) / cfg.logit_scale
+    # vocab-sharded logits: keeps the (B, S, V) tensor (the largest activation
+    # by far) distributed over the model axis through the loss
+    return constrain(logits, "batch", None, "model")
 
 
 def loss_fn(cfg: ArchConfig, params, batch: dict) -> torch.Tensor:
@@ -269,7 +274,13 @@ def loss_fn(cfg: ArchConfig, params, batch: dict) -> torch.Tensor:
     logits = forward(cfg, params, batch).float()
     labels = batch["labels"]
     lse = torch.logsumexp(logits, dim=-1)
-    picked = torch.gather(logits, -1, labels[..., None])[..., 0]
+    # a 2-D gather: DTensor's rule for a gather along a sharded vocab
+    # dimension takes a 2-D input only (the picked values are the same)
+    picked = torch.gather(logits.reshape(-1, logits.shape[-1]), 1,
+                          labels.reshape(-1, 1))
+    # reduced over the vocab shards here, before it meets lse (DTensor would
+    # otherwise mask lse as if it were indices)
+    picked = constrain(picked, "batch", None).reshape(labels.shape)
     ll = picked - lse
     mask = batch.get("loss_mask")
     if mask is None:
@@ -338,7 +349,7 @@ def decode_step(cfg: ArchConfig, params: Model, token, pos, cache: dict,
     """token: (B,) integer; pos: a Python int or a 0-d integer tensor.
     Returns (logits (B, V), cache): the cache is updated in place (JAX
     returns a new one)."""
-    x = params.embed[token][:, None, :] * cfg.scale_emb
+    x = lookup(params.embed, token)[:, None, :] * cfg.scale_emb
     if cfg.family == "encdec":
         x = x + params.dec_pos[pos][None, None]
     for i, layer in enumerate(params.layers):

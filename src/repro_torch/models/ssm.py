@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..dist.ctx import constrain, split_heads
 from .config import ArchConfig
 from .layers import RMSNorm, _dtype, _einsum, const_param, dense_init
 
@@ -152,7 +153,7 @@ class Mamba2(nn.Module):
         xbc, conv_tail = _causal_conv(self.conv_w, self.conv_b, cfg, xbc,
                                       conv_in)
         xh, Bm, Cm = torch.tensor_split(xbc, [DI, DI + N], dim=-1)
-        xh = xh.reshape(B, S, H, P)
+        xh = split_heads(xh, (B, S, H, P))
         dt = F.softplus(dtr.float() + self.dt_bias)
         A = -torch.exp(self.A_log)
         ssm_in = state["ssm"] if state else None
@@ -175,7 +176,7 @@ class Mamba2(nn.Module):
         conv_out = F.silu(conv_out)[:, None, :]
         new_conv = full[:, 1:, :]
         xh, Bm, Cm = torch.tensor_split(conv_out, [DI, DI + N], dim=-1)
-        xh = xh.reshape(B, H, P)
+        xh = split_heads(xh, (B, H, P))
         dt = F.softplus(dtr[:, 0].float() + self.dt_bias)  # (B, H)
         A = -torch.exp(self.A_log)
         decay = torch.exp(dt * A)  # (B, H)
@@ -183,7 +184,9 @@ class Mamba2(nn.Module):
             "bn,bh,bhp->bhnp", Bm[:, 0].float(), dt, xh.float())
         y = _einsum("bn,bhnp->bhp", Cm[:, 0].float(), st)
         y = y.to(u.dtype) + xh * self.D[None, :, None].to(xh.dtype)
-        y = y.reshape(B, 1, DI)
+        # under a mesh, the heads over "model" (not head_dim, as the state
+        # has it): DTensor folds (heads, head_dim) by its leading part only
+        y = constrain(y, "batch", "model", None).reshape(B, 1, DI)
         y = self.norm(y * F.silu(z.to(y.dtype)), cfg.norm_eps)
         return (y.to(u.dtype) @ self.out_proj).to(u.dtype), {
             "conv": new_conv, "ssm": st}

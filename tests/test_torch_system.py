@@ -188,7 +188,9 @@ def test_port_imports_neither_jax_nor_reference():
             "repro_torch.launch.service, repro_torch.launch.serve, "
             "repro_torch.configs, repro_torch.models.convert, "
             "repro_torch.train.serve, repro_torch.optim, repro_torch.data, "
-            "repro_torch.train, repro_torch.launch.train\n"
+            "repro_torch.train, repro_torch.launch.train, repro_torch.dist, "
+            "repro_torch.launch.mesh, repro_torch.launch.hlo_cost, "
+            "repro_torch.launch.dryrun\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "assert not bad, bad\n")
@@ -225,7 +227,12 @@ def test_port_sources_import_no_jax_or_reference():
             "src/repro_torch/train/state.py",
             "src/repro_torch/train/train_loop.py",
             "src/repro_torch/train/coded_step.py",
-            "src/repro_torch/launch/train.py"} <= scanned
+            "src/repro_torch/launch/train.py",
+            "src/repro_torch/dist/sharding.py",
+            "src/repro_torch/dist/ctx.py",
+            "src/repro_torch/launch/mesh.py",
+            "src/repro_torch/launch/hlo_cost.py",
+            "src/repro_torch/launch/dryrun.py"} <= scanned
     for path in files:
         roots = set(_imported_roots(path))
         assert not roots & {"jax", "jaxlib", "repro"}, (path, roots)

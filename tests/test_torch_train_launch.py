@@ -3,7 +3,8 @@ the CPU (`--device cpu`): the JAX launcher's failure-injection scenario
 (`tests/test_launch.py::test_train_launcher_failure_injection`), the
 straggler self-check in each mode, `--resume` from a checkpoint the port
 wrote and from one the JAX package wrote (the state restored bit for
-bit), and the device default, which raises without a card.
+bit), the device default, which raises without a card, and
+`--production`, which changes nothing.
 """
 import jax
 import numpy as np
@@ -107,3 +108,18 @@ def test_main_defaults_to_cuda_and_raises_without_it(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         LT.main(["--steps", "1"])
+
+
+def test_production_flag_changes_nothing(capsys):
+    """`--production` (the JAX launcher's 512 forced host devices) is
+    accepted; the losses and the state are the run's without it, bitwise,
+    and no process group is left behind."""
+    import torch.distributed as dist
+
+    argv = ["--steps", "3", "--log-every", "1"] + SMALL
+    plain = LT.main(argv)
+    prod = LT.main(argv + ["--production"])
+    assert prod.losses == plain.losses and len(prod.losses) == 3
+    assert all(torch.equal(a, b) for a, b in zip(
+        tree_flatten(plain.state)[0], tree_flatten(prod.state)[0]))
+    assert not dist.is_initialized()
