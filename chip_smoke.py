@@ -11,6 +11,8 @@
    multiply-adds (IMAD.WIDE.U32) in gf_matmul_small's, and one line per
    cluster size of `ntt_cluster` (blocks a cluster, shared bytes a block,
    columns, `cudaOccupancyMaxActiveClusters`, registers and spills);
+   meanwhile the dist phase's dry-run cells (13a) run on the host, and
+   their lines follow the build's, before any kernel is timed;
 3. kernel phase: holds each kernel bitwise against its plain PyTorch version
    at the main path's shapes and at edge shapes, and times kernel, plain
    version and a one-call PyTorch yardstick with CUDA events (for the NTT
@@ -106,24 +108,38 @@
    of every arch at smoke width, every gradient finite, the loss finite
    after one SGD step;
 13. dist phase: (a) the port's dry-run (`repro_torch.launch.dryrun`), host
-   only, in three subprocesses started together with no card visible:
+   only, in seven subprocesses started together with no card visible
+   (while the kernels build, step 2):
    qwen3_1_7b x decode_32k and x train_4k on the 16x16 mesh, mamba2_780m x
-   long_500k on the 2x16x16 multi-pod mesh (fake process groups of 256
-   and 512 ranks, meta DTensors); per cell its per-device FLOPs, bytes and
-   collective bytes by kind, the dominant term and both rooflines (the JAX
-   package's TPU v5e model and the H100 data sheet); (b) `constrain` on
-   the card: the training phase's full-width state, a batch and a decode
-   cache as DTensors on a 1x1 ("data", "model") mesh of a one-rank NCCL
-   group, placed by `dist.sharding`'s specs with `from_local` (no copy);
+   long_500k on the 2x16x16 multi-pod mesh, the SSM's and the MoE's
+   train_4k (mamba2_780m, phi3_5_moe_42b_a6_6b), llava_next_mistral_7b x
+   prefill_32k and qwen3_1_7b x train_4k on the multi-pod mesh (fake
+   process groups of 256 and 512 ranks, meta DTensors); per cell its
+   per-device FLOPs, bytes and collective bytes by kind, the dominant term
+   and both rooflines (the JAX package's TPU v5e model and the H100 data
+   sheet), each traced in under 180 s; (b) `constrain` on the card: the
+   training phase's full-width state, a batch and a decode cache as
+   DTensors on a 1x1 ("data", "model") mesh of a one-rank NCCL group,
+   placed by `dist.sharding`'s specs with `from_local` (no copy);
    `value_and_grad`, one train step and 8 greedy decode steps inside
    `activation_sharding`, under deterministic algorithms, the loss, every
    gradient, the new parameters and every decode logit bitwise the plain
-   run's; ms per step and per token, DTensor beside plain, in turns;
-14. prints the per-kernel JSON line (launches summed over every path) and,
+   run's; ms per step and per token, DTensor beside plain, in turns; then
+   mamba2_780m and phi3_5_moe_42b_a6_6b at smoke width the same way
+   (`value_and_grad` and one step, bitwise);
+14. examples phase: every script of `examples_torch/` (the seven JAX
+   examples on the port) on the card, each in a process of its own, all
+   started together, as a user runs it (no arguments: `--device cuda`):
+   its rc, wall and the kernel launches counted in its process, each
+   exiting 0 with its own assertions, the checkpoint restart continuing
+   with a loss drift of exactly 0;
+15. prints the per-kernel JSON line (launches summed over every path) and,
    last, the device JSON line.
 
-Each path of phases 4-13 is driven with the launch counts set to 0 just
-before it and read just after.
+Each path of phases 4-14 is driven with the launch counts set to 0 just
+before it and read just after (in the examples' own processes, where
+they start at 0).  A `phase_done` line after each phase gives the
+script's seconds so far.
 
 The kernels: `gf_matmul` (int8 tensor cores, 8-bit limbs), `gf_matmul_batched`
 (the mesh's per-processor combine: on the main path the CUDA-core kernel of
@@ -147,6 +163,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -191,12 +208,34 @@ LAUNCH_ARGV = ["--steps", "25", "--ckpt-every", "10", "--fail-at", "12,1,3",
                "--stragglers", "1", "--coded-workers", "4",
                "--straggler-selfcheck", "--device", "cuda"]
 # the dist phase: (a) the port's dry-run, host only, on three cells of the
-# JAX package's launcher tests and its training cell; (b) constrain on the
-# card: one DTensor train step and DIST_DECODE greedy decode steps
+# JAX package's launcher tests and its training cell, then the SSM's and
+# the MoE's training cells (DTensor rules torch 2.11 lacks), a 32k prefill
+# (the chunked attention's loops) and a multi-pod training cell (DTensor's
+# sharding propagation on three mesh dimensions); (b) constrain on the
+# card: one DTensor train step and DIST_DECODE greedy decode steps, and a
+# smoke-width step of each of DIST_SMOKE_ARCHS
 DRYRUN_CELLS = [("qwen3_1_7b", "decode_32k", "single"),
                 ("qwen3_1_7b", "train_4k", "single"),
-                ("mamba2_780m", "long_500k", "multi")]
+                ("mamba2_780m", "long_500k", "multi"),
+                ("mamba2_780m", "train_4k", "single"),
+                ("phi3_5_moe_42b_a6_6b", "train_4k", "single"),
+                ("llava_next_mistral_7b", "prefill_32k", "single"),
+                ("qwen3_1_7b", "train_4k", "multi")]
+DRYRUN_TIMEOUT_S = 180  # a cell's trace time on the card's host, at most
 DIST_DECODE = 8
+DIST_SMOKE_ARCHS = ("mamba2_780m", "phi3_5_moe_42b_a6_6b")
+# the examples phase: every script of examples_torch/ on the card, each in
+# a process of its own (all started together), its launches counted there
+EXAMPLES_DIR = os.path.join(ROOT, "examples_torch")
+EXAMPLE_TIMEOUT_S = 300
+EXAMPLE_RUNNER = """
+import json, runpy, sys
+sys.path[:0] = [sys.argv[1], sys.argv[2]]
+import chip_smoke
+sys.argv = sys.argv[3:]
+runpy.run_path(sys.argv[0], run_name="__main__")
+print("example_launches " + json.dumps(chip_smoke.read_counts()))
+"""
 DIST_BACKEND, DIST_MESH_DEVICE = "nccl", "cuda"
 CARD = ""             # nvidia-smi's name and power limit, set by main()
 
@@ -2220,55 +2259,58 @@ def train_phase(gen) -> dict:
     return total, st
 
 
-def dryrun_phase() -> None:
-    """(a) The port's dry-run, host only: each cell of DRYRUN_CELLS in its
-    own `python -m repro_torch.launch.dryrun`, all started together with
-    no card visible (a fake process group of 256 or 512 ranks, meta
-    DTensors); one line per cell with its per-device census and both
-    rooflines."""
-    import tempfile
-
+def start_dryrun(out: str) -> tuple:
+    """Starts (a), the port's dry-run, host only: each cell of
+    DRYRUN_CELLS in its own `python -m repro_torch.launch.dryrun` writing
+    into `out`, all at once with no card visible (a fake process group of
+    256 or 512 ranks, meta DTensors).  Returns (start time, processes)."""
     env = dict(os.environ, PYTHONPATH=SRC, CUDA_VISIBLE_DEVICES="")
-    with tempfile.TemporaryDirectory() as out:
-        t0 = time.perf_counter()
-        procs = [subprocess.Popen(
-            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
-             "--shape", shape, "--mesh", mesh, "--out-dir", out, "--force"],
-            env=env, cwd=ROOT, stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True)
-            for arch, shape, mesh in DRYRUN_CELLS]
-        try:
-            logs = [p.communicate(timeout=300)[0] for p in procs]
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
-        wall = time.perf_counter() - t0
-        for (arch, shape, mesh), p, log in zip(DRYRUN_CELLS, procs, logs):
-            name = f"{arch} x {shape} x {mesh}"
-            need(p.returncode == 0, f"dryrun {name}: rc {p.returncode}\n"
-                                    f"{log[-3000:]}")
-            with open(os.path.join(out, f"{arch}__{shape}__{mesh}.json")) as f:
-                cell = json.load(f)
-            need("error" not in cell, f"dryrun {name}: {cell.get('error')}")
-            need(cell["n_devices"] == (512 if mesh == "multi" else 256),
-                 f"dryrun {name}: {cell['n_devices']} devices")
-            need(cell["hlo_flops_per_device"] > 0, f"dryrun {name}: no FLOPs")
-            print(json.dumps({
-                "dryrun": name, "n_devices": cell["n_devices"],
-                "flops_per_device": cell["hlo_flops_per_device"],
-                "bytes_per_device": cell["hlo_bytes_per_device"],
-                "collective_bytes_per_device":
-                    cell["collectives"]["total"]["weighted_bytes"],
-                "collectives_by_kind": cell["collectives"]["per_kind"],
-                "dominant": cell["roofline"]["dominant"],
-                "roofline_tpu_v5e": cell["roofline"],
-                "roofline_h100": cell["roofline_h100"],
-                "model_flops_per_device": cell["model_flops_per_device"],
-                "useful_ratio": cell["useful_ratio"],
-                "argument_bytes": cell["memory"]["argument_bytes"],
-                "trace_s": cell["lower_s"]}))
+    return time.perf_counter(), [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--mesh", mesh, "--out-dir", out, "--force"],
+        env=env, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for arch, shape, mesh in DRYRUN_CELLS]
+
+
+def dryrun_phase(out: str, started: tuple) -> None:
+    """(a) Waits for the cells `start_dryrun` started; one line per cell
+    with its per-device census and both rooflines."""
+    t0, procs = started
+    try:
+        logs = [p.communicate(timeout=DRYRUN_TIMEOUT_S + 60)[0]
+                for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for (arch, shape, mesh), p, log in zip(DRYRUN_CELLS, procs, logs):
+        name = f"{arch} x {shape} x {mesh}"
+        need(p.returncode == 0, f"dryrun {name}: rc {p.returncode}\n"
+                                f"{log[-3000:]}")
+        with open(os.path.join(out, f"{arch}__{shape}__{mesh}.json")) as f:
+            cell = json.load(f)
+        need("error" not in cell, f"dryrun {name}: {cell.get('error')}")
+        need(cell["n_devices"] == (512 if mesh == "multi" else 256),
+             f"dryrun {name}: {cell['n_devices']} devices")
+        need(cell["hlo_flops_per_device"] > 0, f"dryrun {name}: no FLOPs")
+        need(cell["lower_s"] < DRYRUN_TIMEOUT_S,
+             f"dryrun {name}: traced in {cell['lower_s']} s")
+        print(json.dumps({
+            "dryrun": name, "n_devices": cell["n_devices"],
+            "flops_per_device": cell["hlo_flops_per_device"],
+            "bytes_per_device": cell["hlo_bytes_per_device"],
+            "collective_bytes_per_device":
+                cell["collectives"]["total"]["weighted_bytes"],
+            "collectives_by_kind": cell["collectives"]["per_kind"],
+            "dominant": cell["roofline"]["dominant"],
+            "roofline_tpu_v5e": cell["roofline"],
+            "roofline_h100": cell["roofline_h100"],
+            "model_flops_per_device": cell["model_flops_per_device"],
+            "useful_ratio": cell["useful_ratio"],
+            "argument_bytes": cell["memory"]["argument_bytes"],
+            "trace_s": cell["lower_s"]}))
     print(json.dumps({"dryrun_cells": len(DRYRUN_CELLS), "wall_s": wall,
                       "host_only": True}))
 
@@ -2302,6 +2344,57 @@ def dtensor_equal(got, want) -> bool:
             if plain and local.shape == y.shape else None}))
         return False
     return True
+
+
+def dtensor_smoke(arch: str, mesh, scoped, total: dict) -> dict:
+    """`arch` at smoke width, its seeded state and a batch as DTensors on
+    `mesh`: `value_and_grad` and one train step inside `scoped`, the loss,
+    every gradient and the new parameters bitwise the plain run's (the
+    caller holds deterministic algorithms on)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.pytree import tree_flatten
+    from repro_torch.data import SyntheticLM
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch.mesh import mesh_axis_sizes
+    from repro_torch.models import model as M
+    from repro_torch.train import init_state, make_train_setup, make_train_step
+
+    cfg = get_config(arch).smoke()
+    opt, _ = make_train_setup(cfg)
+    state = init_state(cfg, torch.Generator(device="cuda").manual_seed(SEED),
+                       opt, "cuda")
+    batch = SyntheticLM(cfg.vocab, 64, 8).device_batch(0)
+    step = make_train_step(cfg, opt)
+    sizes = mesh_axis_sizes(mesh)
+    dstate = shd.from_local(state, type(state)(
+        shd.PartitionSpec(), shd.param_specs(cfg, state.params, sizes, False),
+        shd.opt_state_specs(cfg, state.params, state.opt_state, sizes,
+                            False)), mesh)
+    dbatch = shd.from_local(batch, shd.batch_specs(cfg, batch, sizes, False),
+                            mesh)
+    (loss_p, grads_p), vg_p, _ = counted(
+        f"dist {arch} vg plain",
+        lambda: M.value_and_grad(cfg, state.params, batch), total)
+    (loss_d, grads_d), vg_d, _ = counted(
+        f"dist {arch} vg dtensor",
+        scoped(lambda: M.value_and_grad(cfg, dstate.params, dbatch)), total)
+    need(dtensor_equal(loss_d, loss_p), f"{arch}: DTensor loss differs")
+    need(dtensor_equal(grads_d, grads_p), f"{arch}: DTensor gradients differ")
+    (new_p, m_p), step_p, _ = counted(f"dist {arch} step plain",
+                                      lambda: step(state, batch), total)
+    (new_d, m_d), step_d, _ = counted(
+        f"dist {arch} step dtensor", scoped(lambda: step(dstate, dbatch)),
+        total)
+    need(dtensor_equal(m_d["loss"], m_p["loss"])
+         and dtensor_equal(new_d.params, new_p.params),
+         f"{arch}: DTensor step differs")
+    return {"arch": f"{arch} smoke", "bitwise": {
+        "loss": True, "gradients": len(tree_flatten(grads_p)[0]),
+        "new_params": True}, "value_and_grad_ms": {"plain": vg_p,
+                                                    "dtensor_first": vg_d},
+        "step_ms": {"plain": step_p, "dtensor_first": step_d}}
 
 
 def constrain_phase(state, gen) -> dict:
@@ -2431,6 +2524,8 @@ def constrain_phase(state, gen) -> dict:
             lambda: greedy(model_d, dcache, dfirst)))
         need(dtensor_equal(logits_d, logits_p), "DTensor decode logits differ")
         del cache, dcache, model_p, model_d
+        smoke = [dtensor_smoke(arch, mesh, scoped, total)
+                 for arch in DIST_SMOKE_ARCHS]
     finally:
         torch.use_deterministic_algorithms(was)
         dist.destroy_process_group()
@@ -2446,8 +2541,65 @@ def constrain_phase(state, gen) -> dict:
         "step_ms_in_turns": turns,
         "decode_ms_per_token": {"plain": dec_p / DIST_DECODE,
                                 "dtensor": dec_d / DIST_DECODE},
-        "phase_s": time.perf_counter() - t0, "launches": total,
+        "smoke_width": smoke, "phase_s": time.perf_counter() - t0,
+        "launches": total,
         "card": CARD}))
+    return total
+
+
+def examples_phase() -> dict:
+    """Every `examples_torch/*.py` on the card, each in its own process
+    (started together, with its own temporary directory), as a user runs
+    it: no arguments, so `--device cuda`.  One line per example: its rc,
+    wall and the kernels it launched (counted in its process); each must
+    exit 0 with its own assertions passed, and the checkpoint restart's
+    continuation must be bit-identical.  Returns the launches summed."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    names = sorted(f[:-3] for f in os.listdir(EXAMPLES_DIR)
+                   if f.endswith(".py"))
+    need(len(names) == 7, f"examples_torch holds {names}")
+    total = dict.fromkeys(DESIGNS, 0)
+
+    def run(name, tmp):
+        tmpdir = os.path.join(tmp, name)
+        os.mkdir(tmpdir)
+        start = time.perf_counter()
+        with subprocess.Popen(
+                [sys.executable, "-c", EXAMPLE_RUNNER, ROOT, SRC,
+                 os.path.join(EXAMPLES_DIR, f"{name}.py")],
+                env=dict(os.environ, TMPDIR=tmpdir), cwd=tmpdir,
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True) as proc:
+            try:
+                out = proc.communicate(timeout=EXAMPLE_TIMEOUT_S)[0]
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        return proc.returncode, out, time.perf_counter() - start
+
+    with tempfile.TemporaryDirectory() as tmp, \
+            ThreadPoolExecutor(len(names)) as pool:
+        t0 = time.perf_counter()
+        futures = {name: pool.submit(run, name, tmp) for name in names}
+        results = {name: f.result() for name, f in futures.items()}
+        wall = time.perf_counter() - t0
+    for name, (rc, out, secs) in results.items():
+        need(rc == 0, f"example {name}: rc {rc}\n{out[-3000:]}")
+        counts = json.loads(
+            out.rsplit("example_launches ", 1)[1].splitlines()[0])
+        for k, n in counts.items():
+            total[k] += n
+        print(json.dumps({"example": f"examples_torch/{name}.py", "rc": rc,
+                          "wall_s": secs, "launches": counts,
+                          "last_line": out.rsplit("example_launches", 1)[0]
+                          .strip().splitlines()[-1]}))
+    ckpt = results["coded_checkpoint_restart"][1]
+    need("max loss drift vs uninterrupted run: 0.00e+00" in ckpt,
+         "coded_checkpoint_restart: training did not continue bit-identically")
+    print(json.dumps({"examples": len(results), "wall_s": wall,
+                      "launches": total, "card": CARD}))
     return total
 
 
@@ -2467,7 +2619,15 @@ def main() -> int:
     print(json.dumps({"torch": torch.__version__, "cuda": torch.version.cuda,
                       "device": torch.cuda.get_device_name(0)}))
     t0 = time.perf_counter()
-    logs = build.build()
+    dry_out = tempfile.TemporaryDirectory()
+    dry = start_dryrun(dry_out.name)  # host only: while the kernels build
+    try:
+        logs = build.build()
+    except BaseException:
+        for proc in dry[1]:
+            proc.kill()
+            proc.wait()
+        raise
     print(json.dumps({"build_s": time.perf_counter() - t0,
                       "built": sorted(logs)}))
     for name, log in logs.items():
@@ -2492,26 +2652,41 @@ def main() -> int:
                   "67 TFLOP/s float32 = 128 FMA lanes/SM) and the Hopper "
                   "white paper (64 INT32 lanes/SM): INT32 multiply-adds at "
                   "half the FMA rate"}}))
+    def done(phase: str) -> None:  # the script's time line
+        print(json.dumps({"phase_done": phase,
+                          "script_s": time.perf_counter() - t0}))
+
+    with dry_out:
+        dryrun_phase(dry_out.name, dry)  # before any kernel is timed
+    done("build and dryrun")
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     summary = kernel_phase(gen)
     summary["gf_matmul_batched"] = batched_kernel_phase(gen)
+    done("kernels")
     launches = main_path_phase()
-    for name, n in mesh_phase().items():
-        launches[name] += n
-    for name, n in stream_phase().items():
-        launches[name] += n
-    simulator_phase()
-    for phase in (solve_phase, lambda: checkpoint_phase(gen),
-                  lambda: coding_phase(gen), service_phase,
-                  lambda: serve_phase(gen)):
-        for name, n in phase().items():
-            launches[name] += n
+    for name, phase in (("mesh", mesh_phase), ("stream", stream_phase),
+                        ("solve", solve_phase),
+                        ("checkpoint", lambda: checkpoint_phase(gen)),
+                        ("coding", lambda: coding_phase(gen)),
+                        ("service", service_phase),
+                        ("serve", lambda: serve_phase(gen))):
+        for k, n in phase().items():
+            launches[k] += n
+        done(name)
+        if name == "stream":
+            simulator_phase()
+            done("simulator")
     counts, state = train_phase(gen)
-    dryrun_phase()
+    done("train")
     counts = {k: n + counts[k] for k, n in constrain_phase(state, gen).items()}
     del state
-    for name, n in counts.items():
-        launches[name] += n
+    torch.cuda.empty_cache()
+    done("constrain")
+    for k, n in examples_phase().items():
+        counts[k] += n
+    done("examples")
+    for k, n in counts.items():
+        launches[k] += n
 
     sources = {"gf_matmul": ("src/repro_torch/csrc/gf_matmul.cu",
                              "src/repro/kernels/gf_matmul.py:53"),

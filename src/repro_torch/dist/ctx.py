@@ -19,6 +19,7 @@ model code run unmodified on one device, on the 4x2 host mesh and on the
 from __future__ import annotations
 
 import contextlib
+import functools
 import threading
 
 import torch
@@ -82,54 +83,93 @@ def constrain(x, *axes):
 
     if not isinstance(x, DTensor):
         return x
+    return x.redistribute(mesh, layout(tuple(x.shape), *axes))
+
+
+def layout(shape: tuple, *axes) -> tuple:
+    """The DTensor placements `constrain(x, *axes)` gives a tensor of
+    `shape` on the active mesh."""
+    mesh = current_mesh()
     sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
     if not _ACTIVE.ctx[1]:
         sizes.pop("pod", None)  # pod axis not batch-parallel in this scope
     spec = PartitionSpec(*(_resolve(a, sizes) for a in axes))
-    spec = guard(spec, tuple(x.shape), sizes)
-    return x.redistribute(mesh, placements(spec, mesh))
+    return placements(guard(spec, shape, sizes), mesh)
 
 
 def einsum(eq: str, *ops):
     """`torch.einsum(eq, *ops)`; under a mesh, on DTensors, run on each
-    rank's shards.  For each mesh dimension: if the operands that are
-    sharded over it all shard one index, every operand holding that index
-    is sharded on it and the others are replicated, the local einsums
+    rank's shards.  For each mesh dimension: if one operand is a partial
+    sum over it and the others are replicated, the result is a partial
+    sum (`Partial`: an einsum is linear in each operand).  Else partial
+    sums are reduced first, and of the indices the operands shard over it
+    one is kept, an output index if there is one: every operand holding
+    it is sharded on it, the others are replicated, and the local einsums
     compute that index's blocks (a sharded output index: `Shard`; a
-    contracted one: each rank's partial sum, `Partial`); otherwise every
-    operand is first replicated over it.  (DTensor's own einsum folds the
-    batch indices into one dimension and, in some versions, refuses to
-    when a later one of them is sharded.)  Without a mesh, or with a plain
-    operand, it is `torch.einsum`."""
-    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    contracted one: each rank's partial sum, `Partial`).  (DTensor's own
+    einsum folds the batch indices into one dimension and, in some
+    versions, refuses to when a later one of them is sharded.)  Without a
+    mesh, or with a plain operand, it is `torch.einsum`."""
+    from torch.distributed.tensor import DTensor
 
     mesh = current_mesh()
     if mesh is None or not all(isinstance(t, DTensor) for t in ops):
         return torch.einsum(eq, *ops)
+    return _on_shards(mesh, eq, ops, functools.partial(torch.einsum, eq))
+
+
+def matmul(x, w):
+    """`x @ w`, x (..., d) and w a (d, f) weight.  Under a mesh, on
+    DTensors, on each rank's shards by `einsum`'s rule (the local product
+    is `x @ w`): DTensor's own matmul flattens x's leading dimensions,
+    which turns a dimension sharded after the first into a strided shard,
+    and on the 2x16x16 mesh its sharding propagation then prices
+    redistributions for minutes an op.  Otherwise it is `x @ w`."""
+    from torch.distributed.tensor import DTensor
+
+    mesh = current_mesh()
+    if mesh is None or not (isinstance(x, DTensor) and isinstance(w, DTensor)):
+        return x @ w
+    lead = "abceghijkl"[:x.ndim - 1]
+    return _on_shards(mesh, f"{lead}d,df->{lead}f", (x, w), torch.matmul)
+
+
+def _on_shards(mesh, eq: str, ops, local_fn):
+    """`local_fn` (the einsum `eq`) on each rank's shards of the DTensors
+    `ops`, laid out by `einsum`'s rule; the result as a DTensor."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
     ins, out = eq.replace(" ", "").split("->")
     ins = ins.split(",")
     ops = list(ops)
+
+    def placed(t, m, p):
+        return t.redistribute(mesh, t.placements[:m] + (p,)
+                              + t.placements[m + 1:])
+
     placements, sharded_dims = [], []
     for m in range(mesh.ndim):
-        sharded = {ins[i][t.placements[m].dim] for i, t in enumerate(ops)
-                   if t.placements[m].is_shard()}
-        ok = len(sharded) <= 1 and not any(t.placements[m].is_partial()
-                                           for t in ops)
-        index = next(iter(sharded), None)
-        if ok and index is not None:
-            ok = all((index in ins[i]) == t.placements[m].is_shard()
-                     for i, t in enumerate(ops))
-        if not ok:
-            ops = [t.redistribute(mesh, t.placements[:m] + (Replicate(),)
-                                  + t.placements[m + 1:]) for t in ops]
-            index = None
-        if index is not None:
+        kinds = [t.placements[m] for t in ops]
+        if (sum(p.is_partial() for p in kinds) == 1 and Partial() in kinds
+                and all(p.is_partial() or p.is_replicate() for p in kinds)):
             sharded_dims.append(m)
-        placements.append(Replicate() if index is None
-                          else Shard(out.index(index)) if index in out
+            placements.append(Partial())
+            continue
+        ops = [placed(t, m, Replicate()) if t.placements[m].is_partial()
+               else t for t in ops]
+        sharded = [ins[i][t.placements[m].dim] for i, t in enumerate(ops)
+                   if t.placements[m].is_shard()]
+        if not sharded:
+            placements.append(Replicate())
+            continue
+        index = next((c for c in sharded if c in out), sharded[0])
+        ops = [placed(t, m, Shard(ins[i].index(index)) if index in ins[i]
+                      else Replicate()) for i, t in enumerate(ops)]
+        sharded_dims.append(m)
+        placements.append(Shard(out.index(index)) if index in out
                           else Partial())
     sizes = {c: n for i, t in enumerate(ops) for c, n in zip(ins[i], t.shape)}
-    local = torch.einsum(eq, *(local_shard(t, sharded_dims) for t in ops))
+    local = local_fn(*(local_shard(t, sharded_dims) for t in ops))
     shape = torch.Size(sizes[c] for c in out)
     return DTensor.from_local(local, mesh, placements, run_check=False,
                               shape=shape, stride=_global_stride(local, shape))
@@ -174,14 +214,40 @@ def local_shard(t, varies=()):
     over which `t` is replicated but the local computation that follows
     differs by rank (another operand is sharded there): the gradient is
     each rank's partial sum over them (`Partial`), and `t`'s placement
-    elsewhere.  (Under `torch.utils.checkpoint`'s recomputation torch
+    elsewhere; a partial sum's gradient is the same on every rank
+    (`Replicate`).  (Under `torch.utils.checkpoint`'s recomputation torch
     2.11 can hand `to_local`'s backward a DTensor gradient, which it wraps
     in another DTensor; here such a gradient's own shard is taken.)"""
-    from torch.distributed.tensor import Partial
+    from torch.distributed.tensor import Partial, Replicate
 
-    grad = tuple(Partial() if m in varies and p.is_replicate() else p
+    grad = tuple(Partial() if m in varies and p.is_replicate()
+                 else Replicate() if p.is_partial() else p
                  for m, p in enumerate(t.placements))
     return _LocalShard.apply(t, grad)
+
+
+def along(fn, x, dims):
+    """`fn(x)` for an `fn` that works along the dimensions `dims` of `x`
+    and independently at every index of the others, which it keeps (a
+    cumulative sum, a gather along one dimension).  Under a mesh, on a
+    DTensor, `fn` runs on each rank's shard: `x` is first gathered on
+    `dims` where it is sharded there and reduced where it is a partial
+    sum, and the result is laid out as `x` then is.  (torch 2.11's DTensor
+    has no rule for some of these ops' backward: `flip`, `cumsum`'s;
+    `index_put` with a `None` index, that of `x[:, idx]`.)  Otherwise it
+    is `fn(x)`."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    mesh = current_mesh()
+    if mesh is None or not isinstance(x, DTensor):
+        return fn(x)
+    dims = {d % x.ndim for d in dims}
+    placements = tuple(
+        Replicate() if p.is_partial() or (p.is_shard() and p.dim in dims)
+        else p for p in x.placements)
+    x = x.redistribute(mesh, placements)
+    return DTensor.from_local(fn(local_shard(x)), mesh, placements,
+                              run_check=False)
 
 
 def lookup(table, ids):

@@ -31,12 +31,16 @@ counts the DTensor-level op at the global shape as well as the local one:
 What the JAX census does that has no analog here: it halves bf16
 all-reduces and reduce-scatters that XLA on the CPU promoted to float32
 (the wire runs them in bf16); torch issues them in their own dtype, so
-nothing is halved.  It scales `while` bodies by their trip counts; Python
-loops unroll, so every iteration is counted as it runs.
+nothing is halved.  It scales `while` bodies by their trip counts; here a
+Python loop over `repeat(n, t)`, whose iterations issue the same ops on
+tensors of the same shapes, runs its first iteration only under a census
+(on meta tensors) and that iteration's counts are multiplied by n; any
+other loop unrolls, each iteration counted as it runs.
 """
 from __future__ import annotations
 
 import math
+import threading
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -66,6 +70,28 @@ _BOOKKEEPING = {"empty", "empty_like", "empty_strided", "arange", "lift_fresh",
 # in place into a slice: traffic is 2 x the updated slice
 _SLICE_UPDATE = {"copy_": 1, "index_copy_": 3, "index_put_": 2,
                  "slice_scatter": 1, "select_scatter": 1}
+
+
+_ACTIVE = threading.local()  # .census: the census counting this thread
+
+
+def repeat(n: int, like: torch.Tensor):
+    """`range(n)`, for a loop whose n iterations issue the same ops on
+    tensors of the same shapes.  Under a census, when `like` (one of the
+    loop's tensors) is on the meta device, it yields 0 alone and the ops
+    of that one iteration count n times, as the JAX census multiplies a
+    `while` body by its trip count; the caller makes the outputs of the
+    skipped iterations (their shapes: meta tensors hold no values).
+    Otherwise every iteration runs."""
+    census = getattr(_ACTIVE, "census", None)
+    if census is None or n <= 1 or like.device.type != "meta":
+        yield from range(n)
+        return
+    census.scale *= n
+    try:
+        yield 0
+    finally:
+        census.scale //= n
 
 
 def _tensors(*trees) -> list:
@@ -107,6 +133,16 @@ class _Census(TorchDispatchMode):
         self.kinds: dict[str, list] = {}
         self.ops: set[str] = set()
         self.by_op: dict[str, float] = {}
+        self.scale = 1  # iterations each op stands for (`repeat`)
+
+    def __enter__(self):
+        self._outer = getattr(_ACTIVE, "census", None)
+        _ACTIVE.census = self
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        _ACTIVE.census = self._outer
+        return super().__exit__(*exc)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         from torch._subclasses.fake_tensor import FakeTensor
@@ -127,34 +163,37 @@ class _Census(TorchDispatchMode):
         name = func.overloadpacket.__name__
         op = str(func.overloadpacket)
         self.ops.add(op)
-        flops = self.flops
+        flops = nbytes = 0.0
         out_bytes = sum(_nbytes(t) for t in outs)
         if name in _SLICE_UPDATE:
             i = _SLICE_UPDATE[name]
             upd = args[i] if i < len(args) else None
             if isinstance(upd, torch.Tensor):
-                self.bytes += 2 * _nbytes(upd)
+                nbytes = 2 * _nbytes(upd)
         elif not (func.is_view or name in _BOOKKEEPING):
-            self.bytes += out_bytes
+            nbytes = out_bytes
 
         if name in _MATMUL:
             a = ins[1] if name.startswith("add") or name == "baddbmm" else ins[0]
-            self.flops += 2.0 * outs[0].numel() * a.shape[-1]
+            flops = 2.0 * outs[0].numel() * a.shape[-1]
             if name.startswith("add") or name == "baddbmm":
-                self.flops += outs[0].numel()  # the bias add
+                flops += outs[0].numel()  # the bias add
         elif name == "convolution":
             w = ins[1]
-            self.flops += (2.0 * outs[0].numel() * w.shape[1]
-                           * math.prod(w.shape[2:]))
+            flops = (2.0 * outs[0].numel() * w.shape[1]
+                     * math.prod(w.shape[2:]))
         elif name in _ELEMENTWISE or name in _REDUCE:
-            self.flops += outs[0].numel() if outs else 0
+            flops = outs[0].numel() if outs else 0
         elif name in ("_softmax", "_log_softmax"):
             # XLA's lowering: max and sum reductions over the rows, then
             # subtract, exponential, divide (or log, subtract) per element
             rows = outs[0].numel() // max(outs[0].shape[args[1]], 1)
-            self.flops += 3 * outs[0].numel() + 2 * rows
-        if self.flops != flops:
-            self.by_op[op] = self.by_op.get(op, 0.0) + self.flops - flops
+            flops = 3 * outs[0].numel() + 2 * rows
+        times = self.scale
+        self.bytes += nbytes * times
+        if flops:
+            self.flops += flops * times
+            self.by_op[op] = self.by_op.get(op, 0.0) + flops * times
 
         kind = _KIND.get(name)
         if kind is not None:
@@ -163,10 +202,10 @@ class _Census(TorchDispatchMode):
                 w = float(out_bytes)
             else:
                 w = out_bytes * _COLLECTIVES[kind] * (n - 1) / n if n > 1 else 0.0
-            self.coll_bytes += w
+            self.coll_bytes += w * times
             k = self.kinds.setdefault(kind, [0, 0.0])
-            k[0] += 1
-            k[1] += w
+            k[0] += times
+            k[1] += w * times
 
     def report(self, entry: str) -> dict:
         return {

@@ -14,8 +14,15 @@ What differs from JAX, and why:
 - `torch.einsum` refuses mixed dtypes where `jnp.einsum` promotes; `_einsum`
   casts every operand to the promoted dtype first (`jnp.result_type`).
   Under a mesh it runs on each rank's shards (`dist.ctx.einsum`), and so
-  does attention (`_per_shard`): DTensor's einsum cannot always fold a
-  sharded batch of indices (XLA partitions einsums itself).
+  do attention (`_per_shard`), the weight matmuls (`dist.ctx.matmul`) and
+  the MoE's token gather (`dist.ctx.along`): DTensor's einsum cannot
+  always fold a sharded batch of indices, its matmul's sharding
+  propagation takes minutes an op on the 2x16x16 mesh, and some versions
+  have no rule for the gather's backward (XLA partitions all of these
+  itself).
+- The chunked attention's loops are Python loops over `hlo_cost.repeat`,
+  which the dry-run's census counts as one iteration times the trip
+  count, as the JAX census counts the `lax.scan`s it has there.
 - `jax.nn.gelu` is the tanh approximation; so is `act_fn("gelu")` here.
 - `jnp.repeat(k, rep, axis=2)` is `repeat_interleave`.
 - The decode cache is updated in place: `attention` writes the new token's
@@ -31,8 +38,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..dist.ctx import (constrain, current_mesh, einsum, local_shard,
-                        split_heads)
+from ..dist.ctx import (along, constrain, current_mesh, einsum, layout,
+                        local_shard, matmul, split_heads)
+from ..launch.hlo_cost import repeat
 from .config import ArchConfig
 
 
@@ -195,7 +203,7 @@ def _chunked(q, k, v, scale: float, causal: bool, window: int):
     dev = q.device
     qs = q.reshape(B, nq, cq, H, hd)
     blocks = []
-    for qi in range(nq):
+    for qi in repeat(nq, q):
         qb = qs[:, qi] * scale  # (B, cq, H, hd)
         q_start = qi * cq
         qpos = q_start + torch.arange(cq, device=dev)[:, None]
@@ -215,7 +223,7 @@ def _chunked(q, k, v, scale: float, causal: bool, window: int):
         m = torch.full((B, H, cq), -math.inf, dtype=torch.float32, device=dev)
         l = torch.zeros((B, H, cq), dtype=torch.float32, device=dev)
         acc = torch.zeros((B, H, cq, hd), dtype=torch.float32, device=dev)
-        for ki in range(Skv // ck):
+        for ki in repeat(Skv // ck, k):
             kb = k[:, ki * ck:(ki + 1) * ck]
             vb = v[:, ki * ck:(ki + 1) * ck]
             s = _einsum("bqhd,bkhd->bhqk", qb, kb).float()
@@ -231,6 +239,8 @@ def _chunked(q, k, v, scale: float, causal: bool, window: int):
             m = m_new
         ob = (acc / l[..., None]).to(qb.dtype)  # (B, H, cq, hd)
         blocks.append(ob.transpose(1, 2))
+    # under a census `repeat` ran one q chunk: the others' blocks (shapes)
+    blocks += blocks[-1:] * (nq - len(blocks))
     return torch.stack(blocks, dim=1).reshape(B, Sq, H, hd)
 
 
@@ -284,7 +294,8 @@ class Attention(nn.Module):
         B, Sq, _ = xq.shape
         Skv = xkv.shape[1]
         hd, H, KV = cfg.hd, cfg.n_heads, cfg.n_kv_heads
-        q, k, v = xq @ self.wq, xkv @ self.wk, xkv @ self.wv
+        q, k, v = (matmul(xq, self.wq), matmul(xkv, self.wk),
+                   matmul(xkv, self.wv))
         if cfg.qkv_bias:
             q, k, v = q + self.bq, k + self.bk, v + self.bv
         q = split_heads(q, (B, Sq, H, hd))
@@ -308,16 +319,17 @@ class Attention(nn.Module):
         if mode == "cross":
             if cache is not None:
                 k, v = cache["k"], cache["v"]  # precomputed encoder KV
-                q = split_heads(x @ self.wq, (B, Sq, cfg.n_heads, cfg.hd))
+                q = split_heads(matmul(x, self.wq),
+                                (B, Sq, cfg.n_heads, cfg.hd))
                 if cfg.qk_norm:
                     q = self.q_norm(q, cfg.norm_eps)
                 out = _sdpa(q, k, v, None, cfg)
-                return out.reshape(B, Sq, -1) @ self.wo, cache
+                return matmul(out.reshape(B, Sq, -1), self.wo), cache
             kv_pos = torch.arange(kv_src.shape[1], device=x.device)[None]
             q, k, v = self._project_qkv(cfg, x, kv_src, positions, kv_pos,
                                         use_rope=False)
             out = _sdpa(q, k, v, None, cfg)
-            return out.reshape(B, Sq, -1) @ self.wo, {"k": k, "v": v}
+            return matmul(out.reshape(B, Sq, -1), self.wo), {"k": k, "v": v}
 
         if cache is None:
             q, k, v = self._project_qkv(cfg, x, x, positions, positions, True)
@@ -329,7 +341,7 @@ class Attention(nn.Module):
                 mask = (None if mode == "bidir"
                         else causal_mask(Sq, Sq, 0, window, x.device))
                 out = _sdpa(q, k, v, mask, cfg)
-            return out.reshape(B, Sq, -1) @ self.wo, {"k": k, "v": v}
+            return matmul(out.reshape(B, Sq, -1), self.wo), {"k": k, "v": v}
 
         # ---- decode: Sq == 1, write into the cache ----------------------
         # Ring buffer: when the cache is no longer than the window (sliding
@@ -358,7 +370,7 @@ class Attention(nn.Module):
         if window > 0 and not ring:
             valid = valid & (kpos > cache_pos - window)
         out = _sdpa(q, k_cache, v_cache, valid[None, None], cfg)
-        return out.reshape(B, Sq, -1) @ self.wo, cache
+        return matmul(out.reshape(B, Sq, -1), self.wo), cache
 
 
 # ---------------------------------------------------------------------------
@@ -375,7 +387,8 @@ class MLP(nn.Module):
         self.wd = dense_init((dff, cfg.d_model), gen, device, dt)
 
     def forward(self, cfg: ArchConfig, x):
-        return (act_fn(cfg.act)(x @ self.wg) * (x @ self.wu)) @ self.wd
+        h = act_fn(cfg.act)(matmul(x, self.wg)) * matmul(x, self.wu)
+        return matmul(h, self.wd)
 
 
 # ---------------------------------------------------------------------------
@@ -385,6 +398,73 @@ class MLP(nn.Module):
 # flattened (S*k) order -> scatter into (E, cap, d) buckets per batch row ->
 # three batched expert matmuls -> gather + weighted combine.  A choice whose
 # position reaches the capacity is dropped.
+
+def _expert_blocks(shape: tuple, e_idx, p_idx):
+    """Under a mesh, for buckets of `shape` (B, E, cap, D) laid out with
+    the batch over the data axes and the experts over "model": their
+    placements, this rank's (B, E) block (size, offset), and this rank's
+    rows of the choices' expert and slot indices (the batch as the
+    buckets', replicated elsewhere), the experts shifted into the block."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+
+    mesh = current_mesh()
+    placements = layout(shape, "batch", "model", None, None)
+    rows = tuple(Shard(0) if p == Shard(0) else Replicate()
+                 for p in placements)
+    n, offset = compute_local_shape_and_global_offset(shape, mesh, placements)
+    e = e_idx.redistribute(mesh, rows).to_local() - offset[1]
+    p = p_idx.redistribute(mesh, rows).to_local()
+    inside = (e >= 0) & (e < n[1])
+    b = torch.arange(n[0], device=e.device)[:, None].expand_as(e)
+    return placements, rows, n, b, torch.where(inside, e, 0), p, inside
+
+
+def _dispatch(src, b_idx, e_idx, p_idx, shape: tuple):
+    """(B, E, cap, D) buckets, zero but for src[b, j] added at
+    [b, e_idx[b, j], p_idx[b, j]].  Under a mesh, on DTensors, each rank
+    fills its block of the buckets (the batch over the data axes, the
+    experts over "model") from its rows of `src`: a choice of an expert
+    outside the block adds 0 (at the block's first expert, last slot).
+    (torch 2.11's DTensor has no rule for this scatter's backward when the
+    indices' batch is sharded over two mesh dimensions.)"""
+    from torch.distributed.tensor import DTensor
+
+    if current_mesh() is None or not isinstance(src, DTensor):
+        return torch.zeros(shape, dtype=src.dtype, device=src.device).index_put(
+            (b_idx, e_idx, p_idx), src, accumulate=True)
+    mesh = src.device_mesh
+    placements, rows, n, b, e, p, inside = _expert_blocks(shape, e_idx, p_idx)
+    experts = [m for m, q in enumerate(placements) if q.is_shard(1)]
+    vals = local_shard(src.redistribute(mesh, rows), experts)
+    vals = torch.where(inside[..., None], vals, 0)
+    local = torch.zeros(n, dtype=vals.dtype, device=vals.device).index_put(
+        (b, e, torch.where(inside, p, shape[2] - 1)), vals, accumulate=True)
+    return DTensor.from_local(local, mesh, placements, run_check=False)
+
+
+def _combine(buckets, b_idx, e_idx, p_idx):
+    """buckets[b, e_idx[b, j], p_idx[b, j]]: (B, J, D).  Under a mesh, on
+    DTensors, each rank gathers from its block of the buckets: a choice of
+    an expert outside the block reads 0, and the result is the sum over
+    the mesh dimensions that split the experts (`Partial`).  (torch 2.11's
+    DTensor has no rule for this gather when the indices' batch is sharded
+    over two mesh dimensions.)"""
+    from torch.distributed.tensor import DTensor, Partial
+
+    if current_mesh() is None or not isinstance(buckets, DTensor):
+        return buckets[b_idx, e_idx, p_idx]
+    mesh = buckets.device_mesh
+    placements, rows, _, b, e, p, inside = _expert_blocks(
+        tuple(buckets.shape), e_idx, p_idx)
+    local = local_shard(buckets.redistribute(mesh, placements))[b, e, p]
+    local = torch.where(inside[..., None], local, 0)
+    return DTensor.from_local(
+        local, mesh, tuple(Partial() if q.is_shard(1) else r
+                           for q, r in zip(placements, rows)),
+        run_check=False)
+
 
 class MoE(nn.Module):
     def __init__(self, cfg: ArchConfig, gen, device):
@@ -407,7 +487,7 @@ class MoE(nn.Module):
         B, S, D = x.shape
         E, k = cfg.n_experts, cfg.top_k
         cap = max(1, int(cfg.capacity_factor * S * k / E))
-        logits = x.float() @ self.router                       # (B, S, E)
+        logits = matmul(x.float(), self.router)               # (B, S, E)
         topv, topi = torch.topk(logits, k, dim=-1)
         weights = torch.softmax(topv, dim=-1)                  # (B, S, k)
         flat_e = topi.reshape(B, S * k)
@@ -418,12 +498,10 @@ class MoE(nn.Module):
         tok_idx = torch.arange(S * k, device=x.device) // k
         e_idx = torch.where(keep, flat_e, 0)
         p_idx = torch.where(keep, pos, cap - 1)
-        src = torch.where(keep[..., None], x[:, tok_idx], 0)
+        src = torch.where(keep[..., None],
+                          along(lambda t: t[:, tok_idx], x, (1,)), 0)
         b_idx = torch.arange(B, device=x.device)[:, None].expand(B, S * k)
-        # out of place: under DTensor `src` is one, the fresh zeros are not
-        buckets = torch.zeros((B, E, cap, D), dtype=x.dtype,
-                              device=x.device).index_put(
-            (b_idx, e_idx, p_idx), src, accumulate=True)
+        buckets = _dispatch(src, b_idx, e_idx, p_idx, (B, E, cap, D))
         # group axis on data, expert axis on model: expert compute is fully
         # partitioned over the whole mesh
         buckets = constrain(buckets, "batch", "model", None, None)
@@ -433,7 +511,7 @@ class MoE(nn.Module):
         out_buckets = _einsum("gecf,efd->gecd", h, self.wd)    # (B, E, cap, D)
         out_buckets = constrain(out_buckets, "batch", "model", None, None)
 
-        gathered = out_buckets[b_idx, e_idx, p_idx]            # (B, S*k, D)
+        gathered = _combine(out_buckets, b_idx, e_idx, p_idx)  # (B, S*k, D)
         gathered = torch.where(keep[..., None], gathered, 0)
         w = weights.reshape(B, S * k, 1).to(x.dtype)
         y = (gathered * w).reshape(B, S, k, D).sum(dim=2)

@@ -38,7 +38,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..dist.ctx import constrain, lookup
+from ..dist.ctx import constrain, lookup, matmul
 from .config import ArchConfig
 from .layers import MLP, Attention, MoE, RMSNorm, _dtype, dense_init
 from .ssm import Mamba2
@@ -251,7 +251,7 @@ def forward(cfg: ArchConfig, params, batch: dict) -> torch.Tensor:
     enc_out = None
     vision = cfg.family == "vlm" and "vision_embeds" in batch
     if vision:
-        v = batch["vision_embeds"].to(x.dtype) @ params.vis_proj
+        v = matmul(batch["vision_embeds"].to(x.dtype), params.vis_proj)
         x = torch.cat([v, x], dim=1)
         positions = torch.arange(x.shape[1], device=x.device)[None]
     if cfg.family == "encdec":
@@ -262,7 +262,7 @@ def forward(cfg: ArchConfig, params, batch: dict) -> torch.Tensor:
     x = params.ln_f(x, cfg.norm_eps)
     if vision:
         x = x[:, -S:]  # logits over text positions only
-    logits = (x @ params.w_out(cfg)) / cfg.logit_scale
+    logits = matmul(x, params.w_out(cfg)) / cfg.logit_scale
     # vocab-sharded logits: keeps the (B, S, V) tensor (the largest activation
     # by far) distributed over the model axis through the loss
     return constrain(logits, "batch", None, "model")
@@ -358,4 +358,4 @@ def decode_step(cfg: ArchConfig, params: Model, token, pos, cache: dict,
         for k, v in state.items():  # the SSM's new state and conv tail
             cache[k][i].copy_(v)
     x = params.ln_f(x, cfg.norm_eps)
-    return (x[:, 0] @ params.w_out(cfg)) / cfg.logit_scale, cache
+    return matmul(x[:, 0], params.w_out(cfg)) / cfg.logit_scale, cache

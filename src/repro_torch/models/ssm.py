@@ -16,7 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..dist.ctx import constrain, split_heads
+from ..dist.ctx import along, constrain, matmul, split_heads
 from .config import ArchConfig
 from .layers import RMSNorm, _dtype, _einsum, const_param, dense_init
 
@@ -44,12 +44,15 @@ def _cumsum(x, dim: int):
     """`torch.cumsum`, but on a CUDA tensor under
     `torch.use_deterministic_algorithms` (CUDA's floating cumsum has no
     deterministic kernel and raises there; the straggler-coded train step
-    turns the mode on) a product with a triangular matrix of ones."""
-    if x.is_cuda and torch.are_deterministic_algorithms_enabled():
-        n = x.shape[dim]
-        tri = torch.ones((n, n), dtype=x.dtype, device=x.device).triu()
-        return (x.movedim(dim, -1) @ tri).movedim(-1, dim)
-    return torch.cumsum(x, dim=dim)
+    turns the mode on) a product with a triangular matrix of ones.  Under
+    a mesh, on a DTensor, on each rank's shard (`dist.ctx.along`)."""
+    def local(t):
+        if t.is_cuda and torch.are_deterministic_algorithms_enabled():
+            n = t.shape[dim]
+            tri = torch.ones((n, n), dtype=t.dtype, device=t.device).triu()
+            return (t.movedim(dim, -1) @ tri).movedim(-1, dim)
+        return torch.cumsum(t, dim=dim)
+    return along(local, x, (dim,))
 
 
 def _segsum(x):
@@ -138,8 +141,8 @@ class Mamba2(nn.Module):
 
     def _split_proj(self, cfg: ArchConfig, u):
         DI, N = cfg.d_inner, cfg.ssm_state
-        z, xbc, dt = torch.tensor_split(u @ self.in_proj, [DI, 2 * DI + 2 * N],
-                                        dim=-1)
+        z, xbc, dt = torch.tensor_split(matmul(u, self.in_proj),
+                                        [DI, 2 * DI + 2 * N], dim=-1)
         return z, xbc, dt
 
     def forward(self, cfg: ArchConfig, u, state=None):
@@ -161,7 +164,7 @@ class Mamba2(nn.Module):
         y = y + xh * self.D[None, None, :, None].to(xh.dtype)
         y = y.reshape(B, S, DI)
         y = self.norm(y * F.silu(z.to(y.dtype)), cfg.norm_eps)
-        out = (y.to(u.dtype) @ self.out_proj).to(u.dtype)
+        out = matmul(y.to(u.dtype), self.out_proj).to(u.dtype)
         return out, {"conv": conv_tail, "ssm": final}
 
     def decode_step(self, cfg: ArchConfig, u, state):
@@ -188,5 +191,5 @@ class Mamba2(nn.Module):
         # has it): DTensor folds (heads, head_dim) by its leading part only
         y = constrain(y, "batch", "model", None).reshape(B, 1, DI)
         y = self.norm(y * F.silu(z.to(y.dtype)), cfg.norm_eps)
-        return (y.to(u.dtype) @ self.out_proj).to(u.dtype), {
+        return matmul(y.to(u.dtype), self.out_proj).to(u.dtype), {
             "conv": new_conv, "ssm": st}
