@@ -60,8 +60,9 @@ def run_on_device(fn, x: np.ndarray, q: int, device, name: str,
     """numpy payload -> int32 residues on `device` -> `fn` -> numpy int64.
 
     Each leg is its own `kernel_span`, so a trace splits an operation into
-    host work ("host_in": residues as int32; "host_out": back to int64),
-    the copies ("h2d", "d2h") and the kernels (`name`)."""
+    host work ("host_in": residues as int32; "host_out": back to int64, and
+    the staging buffers released), the copies ("h2d", "d2h") and the
+    kernels (`name`)."""
     x = np.asarray(x)
     with kernel_span("host_in"):
         xh = torch.from_numpy(np.ascontiguousarray(x % q, dtype=np.int32))
@@ -72,7 +73,9 @@ def run_on_device(fn, x: np.ndarray, q: int, device, name: str,
     with kernel_span("d2h", bytes=y.numel() * 4):
         yh = y.cpu()
     with kernel_span("host_out"):
-        return yh.numpy().astype(np.int64)
+        out = yh.numpy().astype(np.int64)
+        del xh, xd, y, yh
+    return out
 
 
 def local_encode_callable(plan):

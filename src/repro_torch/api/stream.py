@@ -47,7 +47,7 @@ from typing import Callable, Iterable, Iterator
 import numpy as np
 
 from ..obs.metrics import REGISTRY as _METRICS
-from ..obs.trace import get_tracer
+from ..obs.trace import host_span
 
 DEFAULT_VMEM_BUDGET_BYTES = 4 << 20  # the JAX package's (K, w) tile budget
 _LANES = 128                         # columns per group (JAX: TPU lanes)
@@ -365,8 +365,7 @@ def _block_rows(chunks: Iterator[np.ndarray], rows: slice | None):
         yield c if rows is None else c[rows]
 
 
-def _pipelined(chunks: Iterator[np.ndarray], stage,
-               tracer=None) -> Iterator[np.ndarray]:
+def _pipelined(chunks: Iterator[np.ndarray], stage) -> Iterator[np.ndarray]:
     """Double-buffered device pipeline.
 
     For each chunk k+1: enqueue its host->device transfer, then dispatch
@@ -374,16 +373,14 @@ def _pipelined(chunks: Iterator[np.ndarray], stage,
     then materialize chunk k.  One chunk of read-ahead: when chunk k's
     output is yielded, chunks k and k+1 have been drawn from `chunks`.
 
-    With a `tracer`, the three pipeline stages of every chunk become
-    spans on a "stream"/"pipeline" track (h2d / dispatch / materialize);
-    they time the host side of each stage and never synchronise the
-    device.
+    With a tracer installed, the three pipeline stages of every chunk
+    become spans on a "stream"/"pipeline" track (h2d / dispatch /
+    materialize; profiler ranges `stream.<stage>`); they time the host side
+    of each stage and never synchronise the device.
     """
     def _span(name, k):
-        if tracer is None:
-            return contextlib.nullcontext()
-        return tracer.span(name, pid="stream", tid="pipeline",
-                           cat="stream", args={"chunk": k})
+        return host_span(name, "stream", tid="pipeline", cat="stream",
+                         chunk=k)
 
     cur = None
     k = 0          # index of the chunk resident on device
@@ -447,7 +444,7 @@ def run_stream(plan, payload, *, chunk_w: int | None = None
         stage = device_stage(plan._stream_device_fn(), plan.device,
                              plan.field.q)
         yield from _pipelined(_block_rows(chunks, plan._stream_rows()),
-                              stage, tracer=get_tracer())
+                              stage)
         return
     run_chunk = backend.encode if plan.op == "encode" else backend.decode
     for c in chunks:

@@ -53,6 +53,7 @@ from typing import Any, Iterable, Iterator
 
 import numpy as np
 
+from ..obs.trace import host_span
 from .planner import ALPHA_DEFAULT, BETA_BITS_DEFAULT, EncodePlan, Encoder
 from .registry import get_backend, plan_device
 from .spec import CodeSpec
@@ -119,7 +120,8 @@ class CodedSystem:
               the session's device.
     trace   : observability tracer — True (collect, read
               `system.tracer`), an `obs.trace.Tracer`, or a path (trace
-              JSON written there on `close()`); simulator rounds, stream
+              JSON written there on `close()`); simulator rounds, the
+              session's and the decode planner's host steps, stream
               pipeline stages, kernel launches and host<->device copies
               land on it as spans
     device  : torch device for every plan of the session; None means
@@ -278,8 +280,12 @@ class CodedSystem:
         """The full systematic codeword [x | parity]: (K, W) -> (N, W)."""
         x = np.asarray(x)
         parity = self._enc.run(x)
-        data = (x % self.spec.q).astype(np.int64)
-        return np.concatenate([data, parity], axis=0)
+        with host_span("residues", "session"):
+            data = (x % self.spec.q).astype(np.int64)
+        with host_span("assemble", "session"):
+            cw = np.concatenate([data, parity], axis=0)
+            del data, parity  # the parts' pages are released in the span
+        return cw
 
     def encode_stream(self, payload, *, chunk_w: int | None = None
                       ) -> Iterator[np.ndarray]:
@@ -301,7 +307,8 @@ class CodedSystem:
         concurrent `fail`/`heal` lands mid-flight."""
         v = np.asarray(v)
         if v.shape[0] == self.spec.N:
-            return v[list(plan.kept)]
+            with host_span("gather", "session"):
+                return v[list(plan.kept)]
         if v.shape[0] == self.spec.K:
             return v
         raise ValueError(
@@ -326,7 +333,8 @@ class CodedSystem:
                 raise ValueError(
                     f"expected (N={self.spec.N}, ...) or (K={self.spec.K},"
                     f" ...) rows, got leading dim {v.shape[0]}")
-            return (v[: self.spec.K] % self.spec.q).astype(np.int64)
+            with host_span("residues", "session"):
+                return (v[: self.spec.K] % self.spec.q).astype(np.int64)
         plan = self.decode_plan  # pinned: one pattern for slice + data
         return plan.data(self._survivor_view(v, plan))
 
@@ -383,18 +391,34 @@ class CodedSystem:
 
     def _rebuild_block(self, v: np.ndarray, plan) -> np.ndarray:
         """One (N, w) healed block from an (N, w)/(K, w) survivor block
-        (the non-streamed body of `rebuild`; pattern pinned by `plan`)."""
+        (the non-streamed body of `rebuild`; pattern pinned by `plan`).
+        The repaired rows are computed first and scattered after, so the
+        session's host spans and the device call's legs never nest."""
         N, K, q = self.spec.N, self.spec.K, self.spec.q
         if v.shape[0] == N:
-            healed = (v % q).astype(np.int64)
-            if plan.erased:
-                healed[list(plan.erased)] = plan.run(v[list(plan.kept)])
+            fill = list(plan.erased)
+            if fill:
+                with host_span("gather", "session"):
+                    kept = v[list(plan.kept)]
+                rows = plan.run(kept)
+                del kept
+            with host_span("residues", "session"):
+                healed = (v % q).astype(np.int64)
+            if fill:
+                with host_span("assemble", "session"):
+                    healed[fill] = rows
+                    del rows
             return healed
         if v.shape[0] == K:
             comp = self._complement_plan(plan)
-            healed = np.empty((N, v.shape[1]), np.int64)
-            healed[list(comp.kept)] = (v % q).astype(np.int64)
-            healed[list(comp.erased)] = comp.run(v)
+            rows = comp.run(v)
+            with host_span("residues", "session"):
+                data = (v % q).astype(np.int64)
+            with host_span("assemble", "session"):
+                healed = np.empty((N, v.shape[1]), np.int64)
+                healed[list(comp.kept)] = data
+                healed[list(comp.erased)] = rows
+                del data, rows
             return healed
         raise ValueError(
             f"expected the full (N={N}, ...) codeword or the (K={K}, ...) "

@@ -51,7 +51,6 @@ raised — and every later save, restore, scrub or reshard waits first.
 """
 from __future__ import annotations
 
-import contextlib
 import hashlib
 import json
 import os
@@ -68,7 +67,7 @@ from ..api import CodedSystem, CodeSpec
 from ..api.stream import iter_chunks, plan_chunk_w
 from ..core.field import FERMAT, bytes_to_symbols, symbols_to_bytes
 from ..core.pytree import tree_flatten, tree_unflatten
-from ..obs.trace import get_tracer
+from ..obs.trace import host_span
 
 # ---------------------------------------------------------------------------
 # tree <-> flat byte stream
@@ -147,11 +146,8 @@ def _sha256(arr: np.ndarray) -> str:
 def _span(name: str):
     """A span on the installed tracer's "ckpt" track, one row per thread
     (a background save's worker has its own); free without a tracer."""
-    tracer = get_tracer()
-    if tracer is None:
-        return contextlib.nullcontext()
-    return tracer.span(name, pid="ckpt", cat="ckpt",
-                       tid=threading.current_thread().name)
+    return host_span(name, "ckpt", tid=threading.current_thread().name,
+                     cat="ckpt")
 
 
 # ---------------------------------------------------------------------------

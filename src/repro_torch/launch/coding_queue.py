@@ -55,7 +55,7 @@ from typing import Any, Callable
 import numpy as np
 
 from ..obs.metrics import REGISTRY as _METRICS
-from ..obs.trace import get_tracer
+from ..obs.trace import get_tracer, host_span
 
 _Q_REQS = _METRICS.counter("queue_requests_total",
                            "requests drained by the coding queue")
@@ -370,16 +370,10 @@ class CodingQueue:
         _Q_GROUP.observe(len(reqs), backend=self.backend, op=reqs[0].op)
         for req in reqs:
             req.group_n = len(reqs)
-        tracer = get_tracer()
-        if tracer is not None:
-            r0 = reqs[0]
-            with tracer.span(f"execute.{r0.op}", pid="queue", tid="worker",
-                             cat="queue.exec",
-                             args={"group_n": len(reqs),
-                                   "kind": r0.spec.kind, "K": r0.spec.K,
-                                   "R": r0.spec.R}):
-                self._execute_group(reqs)
-        else:
+        r0 = reqs[0]
+        with host_span(f"execute.{r0.op}", "queue", tid="worker",
+                       cat="queue.exec", group_n=len(reqs),
+                       kind=r0.spec.kind, K=r0.spec.K, R=r0.spec.R):
             self._execute_group(reqs)
 
     def _execute_group(self, reqs: list[_Request]) -> None:

@@ -236,14 +236,9 @@ def _queue_demo(n_requests: int, n_shards: int, n_parity: int,
 def _span(name: str):
     """A span on the installed tracer's "selfcheck" track (free without a
     tracer)."""
-    import contextlib
+    from ..obs.trace import host_span
 
-    from ..obs.trace import get_tracer
-
-    tracer = get_tracer()
-    if tracer is None:
-        return contextlib.nullcontext()
-    return tracer.span(name, pid="selfcheck", cat="selfcheck")
+    return host_span(name, "selfcheck", cat="selfcheck")
 
 
 def _param_shards(raw: np.ndarray, n_shards: int) -> np.ndarray:

@@ -236,15 +236,10 @@ class CodedService:
         nbytes = int(v.nbytes)
         tracer = _trace.get_tracer()
         try:
-            if tracer is not None:
-                # the admit span makes backpressure *visible*: a long one
-                # is time spent blocked on quota, not compute
-                with tracer.span("admit", pid="service", tid=tenant,
-                                 cat="service.admit",
-                                 args={"op": op, "nbytes": nbytes}):
-                    self._admission.acquire(tenant, nbytes, block=block,
-                                            timeout=timeout)
-            else:
+            # the admit span makes backpressure *visible*: a long one is
+            # time spent blocked on quota, not compute
+            with _trace.host_span("admit", "service", tid=tenant,
+                                  cat="service.admit", op=op, nbytes=nbytes):
                 self._admission.acquire(tenant, nbytes, block=block,
                                         timeout=timeout)
         except QueueFullError:

@@ -34,7 +34,6 @@ by `launch.dryrun` on a fake process group instead.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import dataclasses
 import os
 import time
@@ -44,7 +43,7 @@ import numpy as np
 import torch
 
 from ..core.pytree import tree_flatten
-from ..obs.trace import get_tracer
+from ..obs.trace import host_span
 
 
 @dataclass
@@ -64,11 +63,8 @@ class TrainResult:
 
 
 def _span(name: str, step: int):
-    tracer = get_tracer()
-    if tracer is None:
-        return contextlib.nullcontext()
-    return tracer.span(name, pid="train", tid="launcher", cat="train.ckpt",
-                       args={"step": step})
+    return host_span(name, "train", tid="launcher", cat="train.ckpt",
+                     step=step)
 
 
 def restore(ckpt, step: int, state, failed_shards=frozenset()):

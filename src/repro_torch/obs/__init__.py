@@ -7,9 +7,14 @@ asserting them in tests:
 
     trace   — a low-overhead span/event tracer with Chrome trace-event
               JSON export (perfetto / chrome://tracing).  The simulator
-              emits per-round events on per-processor tracks, the stream
-              engine emits H2D/compute pipeline spans, and the queue /
-              service layers emit per-op spans tagged tenant/tag/group.
+              emits per-round events on per-processor tracks, the session
+              and the decode planner their host steps, the stream engine
+              its H2D/compute pipeline stages, and the queue / service
+              layers per-op spans tagged tenant/tag/group.  The program's
+              host spans (`host_span`, `kernel_span`) also reach
+              `torch.profiler`'s device trace as `<track>.<name>` ranges
+              (a kernel span's bare name), with the page faults taken in
+              each.
     metrics — ONE labeled counter/gauge/histogram registry the layer
               stats classes (`RunStats`, `PlanStats`, `StreamStats`,
               `QueueStats`, `ServiceStats`) publish into, snapshottable
@@ -26,11 +31,11 @@ module scope (the drift ledger pulls the cost model lazily, per call), so
 from . import drift, metrics, trace
 from .drift import LEDGER, DriftLedger
 from .metrics import REGISTRY, MetricsRegistry
-from .trace import Tracer, get_tracer, install, uninstall
+from .trace import Tracer, get_tracer, host_span, install, uninstall
 
 __all__ = [
     "trace", "metrics", "drift",
-    "Tracer", "get_tracer", "install", "uninstall",
+    "Tracer", "get_tracer", "host_span", "install", "uninstall",
     "REGISTRY", "MetricsRegistry",
     "LEDGER", "DriftLedger",
 ]

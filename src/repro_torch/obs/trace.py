@@ -23,12 +23,23 @@ Track names are strings (`pid="simulator"`, `tid="proc 3"`); the trace
 format wants integers, so the tracer interns them and emits the
 `process_name` / `thread_name` metadata events perfetto uses for labels.
 Timestamps are wall-clock microseconds from one process-wide epoch, so
-simulator rounds, kernel launches, and service op spans line up on a
-single timeline.
+the layers' spans line up with each other on the tracer's timeline.
+
+The program's host spans open through `host_span` (and `kernel_span`, for
+the legs of a device call), which also opens a
+`torch.profiler.record_function` range: `<track>.<name>` (a kernel span's
+range is its bare name).  So under `torch.profiler` every span reaches the
+device trace as a range of its own, and the kernels and copies it launched
+are placed under it there (a span on another thread than the profiler's,
+such as the coding queue's worker, only when the profiler profiles every
+thread: `_ExperimentalConfig(profile_all_threads=True)`).  Each such span
+records in its args `minflt`, the minor page faults its thread took inside
+it (0 on a host whose kernel counts none).
 """
 from __future__ import annotations
 
 import json
+import resource
 import threading
 from contextlib import contextmanager
 from time import perf_counter_ns
@@ -215,22 +226,66 @@ def installed(tracer: Tracer | None = None):
         uninstall(t)
 
 
+def _minflt() -> int:
+    """Minor page faults the calling thread has taken so far."""
+    return resource.getrusage(resource.RUSAGE_THREAD).ru_minflt
+
+
+@contextmanager
+def _ranged(tracer: Tracer, name: str, range_name: str, *, pid, tid, cat,
+            args: dict, sync: bool = False):
+    """One profiler range `range_name` around the with-block and, inside
+    it, one tracer span, with the thread's minor page faults in
+    `args["minflt"]`; `sync` ends it with a device synchronise.  The span
+    is written after the range closes, so the two differ by the range's
+    own entry and exit alone."""
+    import torch
+
+    rf = torch.profiler.record_function(range_name)
+    f0 = _minflt()
+    rf.__enter__()
+    t0 = tracer.now_us()
+    try:
+        yield args
+        if sync and torch.cuda.is_initialized():
+            torch.cuda.synchronize()
+    finally:
+        t1 = tracer.now_us()
+        rf.__exit__(None, None, None)
+        args["minflt"] = _minflt() - f0
+        tracer.complete(name, t0, t1 - t0, pid=pid, tid=tid, cat=cat,
+                        args=args)
+
+
+@contextmanager
+def host_span(name: str, track: str, *, tid="main", cat: str = "", **args):
+    """Wrap host work: a span `name` on the installed tracer's `track` and a
+    `torch.profiler.record_function("<track>.<name>")` range, with the
+    thread's minor page faults in `args["minflt"]`.  It never synchronises
+    the device.  Yields the span's args dict, which the block may add to
+    before the span closes.  Free (one `is None` check; no torch import, no
+    `getrusage`) when no tracer is installed."""
+    tracer = get_tracer()
+    if tracer is None:
+        yield args
+        return
+    with _ranged(tracer, name, f"{track}.{name}", pid=track, tid=tid,
+                 cat=cat, args=args):
+        yield args
+
+
 @contextmanager
 def kernel_span(name: str, **args):
-    """Wrap device work: a tracer span AND a
-    `torch.profiler.record_function`, so our spans line up with PyTorch's own
-    profile when both are captured.  With a tracer installed the span ends
-    with a device synchronise, so its duration covers the kernels it
-    launched (not just their enqueue).  Free (and torch-import-free) when no
-    tracer is installed."""
+    """Wrap one leg of a device call: a span on the "backend"/"kernels"
+    track AND a `torch.profiler.record_function(name)` range, with the
+    thread's minor page faults in `args["minflt"]`.  With a tracer installed
+    the span ends with a device synchronise, so its duration covers the
+    kernels it launched (not just their enqueue).  Free (and
+    torch-import-free) when no tracer is installed."""
     tracer = get_tracer()
     if tracer is None:
         yield
         return
-    import torch
-
-    with tracer.span(name, pid="backend", tid="kernels", cat="kernel",
-                     args=args or None), torch.profiler.record_function(name):
+    with _ranged(tracer, name, name, pid="backend", tid="kernels",
+                 cat="kernel", args=args, sync=True):
         yield
-        if torch.cuda.is_initialized():
-            torch.cuda.synchronize()

@@ -48,6 +48,7 @@ from ..core.cost_model import LinearCost
 from ..core.field import FERMAT_Q, Field
 from ..core.matrices import gauss_inverse
 from ..core.simulator import PartialRunError, RoundNetwork
+from ..obs.trace import host_span
 from .engine import batch_block, decode_batches, decode_cost
 
 
@@ -168,10 +169,12 @@ def _decode_tables(spec: CodeSpec, erased: tuple[int, ...],
     K = spec.K
     G = np.concatenate([np.eye(K, dtype=np.int64), host.A % f.q], axis=1)
     survivors = [i for i in range(spec.N) if i not in set(erased)]
-    kept = _choose_kept(f, G, survivors, K)
-    sub = G[:, list(kept)]
-    inv_sub = gauss_inverse(f, sub)
-    D = f.matmul(inv_sub, G[:, list(erased)])
+    with host_span("kept", "planner"):
+        kept = _choose_kept(f, G, survivors, K)
+    with host_span("inverse", "planner"):
+        inv_sub = gauss_inverse(f, G[:, list(kept)])
+    with host_span("repair", "planner"):
+        D = f.matmul(inv_sub, G[:, list(erased)])
     tables = DecodeTables(spec, f, erased, kept, D, inv_sub)
     _lru_put(_DTABLES, key, tables, _DTABLES_MAX)
     return tables
@@ -497,17 +500,19 @@ class Decoder:
         if len(erased) > spec.R:
             raise ValueError(
                 f"{len(erased)} erasures exceed the code's R={spec.R}")
-        digest = _digest(A)
-        plan_key = (spec, erased, backend, digest, device)
-        hit = _lru_get(_DPLANS, plan_key)
-        if hit is not None:
-            _DSTATS["plan_hits"] += 1
-            return hit
-        _DSTATS["plan_misses"] += 1
-        tables = _decode_tables(spec, erased, A, digest)
-        plan = DecodePlan(spec, backend, tables, device=device)
-        _lru_put(_DPLANS, plan_key, plan, _DPLANS_MAX)
-        return plan
+        with host_span("plan", "planner", erased=len(erased)) as span:
+            digest = _digest(A)
+            plan_key = (spec, erased, backend, digest, device)
+            hit = _lru_get(_DPLANS, plan_key)
+            span["hit"] = hit is not None
+            if hit is not None:
+                _DSTATS["plan_hits"] += 1
+                return hit
+            _DSTATS["plan_misses"] += 1
+            tables = _decode_tables(spec, erased, A, digest)
+            plan = DecodePlan(spec, backend, tables, device=device)
+            _lru_put(_DPLANS, plan_key, plan, _DPLANS_MAX)
+            return plan
 
     @classmethod
     def cache_info(cls) -> dict[str, int]:

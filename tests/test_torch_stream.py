@@ -245,6 +245,36 @@ def test_pipeline_spans_are_on_the_stream_track():
     assert all(e["cat"] == "stream" for e in evs)
 
 
+def test_stream_and_queue_spans_are_profiler_ranges():
+    from repro_torch.obs.trace import Tracer, installed
+
+    ts = TSpec(kind="rs", K=8, R=4)
+    tp = TEncoder.plan(ts, backend="local", device="cpu")
+    x = np.random.default_rng(6).integers(0, Q, (8, 12))
+    tq = TQueue(backend="local", chunk_w=5, device="cpu")
+    # the queue's worker is a thread of its own: the profiler records its
+    # ranges only when it profiles every thread
+    every_thread = torch._C._profiler._ExperimentalConfig(
+        profile_all_threads=True)
+    with installed(Tracer()) as tracer, torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU],
+            experimental_config=every_thread) as prof:
+        list(tp.run_stream(x, chunk_w=5))
+        assert np.array_equal(tq.submit_encode(ts, x).result(timeout=60),
+                              tp.run(x))
+        tq.close()
+    ranges = [e.name for e in prof.events()
+              if e.name.startswith(("stream.", "queue."))]
+    # the session's stream, then the queue's worker executing its own
+    assert ranges[:9] == ["stream.h2d", "stream.h2d", "stream.dispatch",
+                          "stream.materialize", "stream.h2d",
+                          "stream.dispatch", "stream.materialize",
+                          "stream.dispatch", "stream.materialize"]
+    assert "queue.execute.encode" in ranges
+    spans = {e["name"] for e in tracer.events()}
+    assert {"h2d", "dispatch", "materialize", "execute.encode"} <= spans
+
+
 # ---------------- session streams -------------------------------------------
 
 @pytest.mark.parametrize("backend", BACKENDS)

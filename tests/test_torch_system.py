@@ -239,8 +239,10 @@ def test_port_sources_import_no_jax_or_reference():
 
 
 def test_trace_splits_each_op_into_host_copy_and_kernel_spans():
+    from repro_torch.api import cache_clear
     from repro_torch.obs.trace import Tracer
 
+    cache_clear()  # the decode plan is made here, not found in the cache
     tracer = Tracer()
     with TSystem(TSpec(kind="rs", K=16, R=4), backend="local", device="cpu",
                  trace=tracer) as t:
@@ -248,10 +250,30 @@ def test_trace_splits_each_op_into_host_copy_and_kernel_spans():
         cw = t.codeword(x)
         t.fail([2, 17])
         t.read(cw)
-    names = [e["name"] for e in tracer.events()]
-    assert names == ["host_in", "h2d", "local_encode.ntt", "d2h", "host_out",
-                     "host_in", "h2d", "local_data", "d2h", "host_out"]
-    assert all(e["cat"] == "kernel" for e in tracer.events())
+    tracks = {e["args"]["name"]: e["pid"]
+              for e in tracer.to_dict()["traceEvents"]
+              if e["name"] == "process_name"}
+    legs = [e for e in tracer.events() if e["pid"] == tracks["backend"]]
+    assert [e["name"] for e in legs] == [
+        "host_in", "h2d", "local_encode.ntt", "d2h", "host_out",
+        "host_in", "h2d", "local_data", "d2h", "host_out"]
+    assert all(e["cat"] == "kernel" for e in legs)
+    # the session's and the planner's host steps sit between the legs
+    names = [(e["name"], {v: k for k, v in tracks.items()}[e["pid"]])
+             for e in tracer.events()]
+    session = [("host_in", "backend"), ("h2d", "backend"),
+               ("local_encode.ntt", "backend"), ("d2h", "backend"),
+               ("host_out", "backend"), ("residues", "session"),
+               ("assemble", "session")]
+    planner = [("kept", "planner"), ("inverse", "planner"),
+               ("repair", "planner"), ("plan", "planner")]
+    read = [("gather", "session"), ("host_in", "backend"), ("h2d", "backend"),
+            ("local_data", "backend"), ("d2h", "backend"),
+            ("host_out", "backend")]
+    assert names == session + planner + read
+    plan = next(e for e in tracer.events() if e["name"] == "plan")
+    assert plan["args"]["erased"] == 2 and plan["args"]["hit"] is False
+    assert all(e["args"]["minflt"] >= 0 for e in tracer.events())
 
 
 def test_kernel_build_needs_nvcc_and_keys_on_the_source(monkeypatch):
