@@ -19,8 +19,8 @@
 
 All three return the JAX package's sink values bitwise: sink r holds
 x^T A[:, r] over F_q.  Inputs/outputs are numpy int64 (K, W) -> (R, W); on
-the device payloads are int32.  The decode halves live in
-`recover.backends`; the `Backend` objects below bind both.
+the device the kernels take int32 residues (`run_on_device`).  The decode
+halves live in `recover.backends`; the `Backend` objects below bind both.
 
 With G > 1 ranks the mesh is SPMD: every rank calls the same entry point
 with the same payload, copies its own block of it to its device, and gets
@@ -55,26 +55,86 @@ def run_simulator(plan, x: np.ndarray) -> tuple[np.ndarray, RoundNetwork]:
     return np.asarray(y, np.int64), net
 
 
-def run_on_device(fn, x: np.ndarray, q: int, device, name: str,
-                  **span_args) -> np.ndarray:
-    """numpy payload -> int32 residues on `device` -> `fn` -> numpy int64.
+_DEVICE_DTYPES = (np.dtype(np.int64), np.dtype(np.int32))
+
+
+def _index(rows, device) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(rows, np.int64), device=device)
+
+
+def _to_device(xh: torch.Tensor, device) -> torch.Tensor:
+    """A copy of host tensor `xh` on `device`.  To a CUDA device it goes
+    through a pinned block of torch's caching host allocator: every host
+    thread copies into it and the DMA runs at the link's rate, where a
+    pageable copy runs at the pace of CUDA's one staging thread."""
+    if torch.device(device).type != "cuda":
+        return xh.to(device, copy=True)
+    pinned = torch.empty(xh.shape, dtype=xh.dtype, pin_memory=True)
+    pinned.copy_(xh)
+    return pinned.to(device)
+
+
+def run_on_device(fn, x: np.ndarray, q: int, device, name: str, *,
+                  pick=None, into=None, **span_args) -> np.ndarray:
+    """numpy payload -> `fn` on `device` -> a fresh numpy int64 answer.
+
+    An int64 or int32 payload goes to the device as it is and its residues
+    mod q are taken there; any other dtype is reduced to int32 on the host
+    first (the "host_in" span's `on_card` arg says which).  `fn` maps
+    (k, w) int32 residues to its rows.  On the device
+      pick : the rows of x that `fn` reads (None: all of them);
+      into : None, the answer is `fn`'s rows; or (n, rows), the answer is n
+             rows holding x's residues in the first len(x) and `fn`'s rows
+             at `rows` (a systematic codeword: (N, range(K, N)); a rebuilt
+             one: (N, erased)).
+    On a CUDA device both copies go through pinned blocks of torch's
+    caching host allocator, and the int32 answer is widened on the host
+    into a fresh int64 array that the caller owns.
 
     Each leg is its own `kernel_span`, so a trace splits an operation into
-    host work ("host_in": residues as int32; "host_out": back to int64, and
-    the staging buffers released), the copies ("h2d", "d2h") and the
-    kernels (`name`)."""
+    host work ("host_in": the payload as a tensor; "host_out": the
+    widening), the copies ("h2d", "d2h"), the device's own glue
+    ("residues_dev": residues and picked rows; "place_dev": `fn`'s rows
+    into the answer) and the kernels (`name`)."""
     x = np.asarray(x)
-    with kernel_span("host_in"):
-        xh = torch.from_numpy(np.ascontiguousarray(x % q, dtype=np.int32))
-    with kernel_span("h2d", bytes=xh.numel() * 4):
-        xd = xh.to(device)
-    with kernel_span(name, w=int(x.shape[1]), **span_args):
-        y = fn(xd)
-    with kernel_span("d2h", bytes=y.numel() * 4):
-        yh = y.cpu()
+    on_card = x.dtype in _DEVICE_DTYPES
+    with kernel_span("host_in", on_card=on_card):
+        if not on_card:
+            x = np.ascontiguousarray(x % q, dtype=np.int32)
+        elif min(x.strides, default=0) < 0:  # torch takes no negative stride
+            x = np.ascontiguousarray(x)
+        xh = torch.from_numpy(x)
+    with kernel_span("h2d", bytes=xh.nbytes):
+        xd = _to_device(xh, device)  # ours to reduce in place
+    with kernel_span("residues_dev"):
+        if into is None:
+            if pick is not None:
+                xd = xd.index_select(0, _index(pick, device))
+            xr = xd.remainder_(q).to(torch.int32,
+                                     memory_format=torch.contiguous_format)
+        else:
+            buf = torch.empty((into[0],) + tuple(xd.shape[1:]),
+                              dtype=torch.int32, device=device)
+            xr = buf[:xd.shape[0]]
+            xr.copy_(xd.remainder_(q))
+            if pick is not None:
+                xr = xr.index_select(0, _index(pick, device))
+        del xd
+    with kernel_span(name, w=int(xr.shape[1]), **span_args):
+        y = fn(xr)
+    if into is not None:
+        with kernel_span("place_dev"):
+            y = buf.index_copy_(0, _index(into[1], device), y)
+    with kernel_span("d2h", bytes=y.numel() * y.element_size()):
+        if y.is_cuda:
+            yh = torch.empty(y.shape, dtype=y.dtype, pin_memory=True)
+            yh.copy_(y)
+        else:
+            yh = y
     with kernel_span("host_out"):
-        out = yh.numpy().astype(np.int64)
-        del xh, xd, y, yh
+        out = np.empty(tuple(y.shape), np.int64)
+        torch.from_numpy(out).copy_(yh)
+        del xh, xr, y, yh
     return out
 
 
@@ -108,12 +168,13 @@ def local_encode_callable(plan):
     return plan._local_fn
 
 
-def run_local(plan, x: np.ndarray) -> np.ndarray:
+def run_local(plan, x: np.ndarray, into=None) -> np.ndarray:
     """Single-device encode on the kernel path (no network): the cached
-    NTT fast path or dense field matmul, per the planner."""
+    NTT fast path or dense field matmul, per the planner.  `into` places
+    the parity in a larger answer on the device (`run_on_device`)."""
     return run_on_device(local_encode_callable(plan), x, plan.field.q,
                          plan.device, f"local_encode.{plan.local_impl}",
-                         kind=plan.spec.kind, K=plan.spec.K)
+                         into=into, kind=plan.spec.kind, K=plan.spec.K)
 
 
 def _mesh_axes(plan):

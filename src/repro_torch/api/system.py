@@ -39,7 +39,8 @@ Payload conventions (mirroring the planners):
     survivor symbols ordered like `system.kept` — the leading dimension
     disambiguates (N = K + R > K always).
   * 1-D inputs are treated as W = 1 and squeezed on return.
-  * numpy int64 in, numpy int64 out; on the device payloads are int32.
+  * numpy int64 in, numpy int64 out; on the device the kernels take int32
+    residues, taken there from int64 or int32 payloads.
 
 Thread safety: erasure-state transitions (`fail`/`heal`) and queue
 lifecycle are lock-protected; per-run measured stats are thread-local on
@@ -277,8 +278,18 @@ class CodedSystem:
         return self._enc.run(x)
 
     def codeword(self, x) -> np.ndarray:
-        """The full systematic codeword [x | parity]: (K, W) -> (N, W)."""
+        """The full systematic codeword [x | parity]: (K, W) -> (N, W).  On
+        the local backend the device places x's residues and the parity in
+        one (N, W) answer; elsewhere the host concatenates them."""
         x = np.asarray(x)
+        K, N = self.spec.K, self.spec.N
+        if self.backend == "local" and x.ndim in (1, 2) and x.shape[0] == K:
+            from .backends import run_local
+
+            with host_span("assemble", "session"):
+                into = (N, range(K, N))
+            cw = run_local(self._enc, x[:, None] if x.ndim == 1 else x, into)
+            return cw[:, 0] if x.ndim == 1 else cw
         parity = self._enc.run(x)
         with host_span("residues", "session"):
             data = (x % self.spec.q).astype(np.int64)
@@ -336,6 +347,10 @@ class CodedSystem:
             with host_span("residues", "session"):
                 return (v[: self.spec.K] % self.spec.q).astype(np.int64)
         plan = self.decode_plan  # pinned: one pattern for slice + data
+        if v.shape[0] == self.spec.N and plan.device is not None:
+            with host_span("assemble", "session"):
+                pick = plan.kept  # the device picks the survivor rows
+            return plan.data(v, pick)
         return plan.data(self._survivor_view(v, plan))
 
     def decode_stream(self, payload, *, chunk_w: int | None = None
@@ -397,6 +412,12 @@ class CodedSystem:
         N, K, q = self.spec.N, self.spec.K, self.spec.q
         if v.shape[0] == N:
             fill = list(plan.erased)
+            if fill and self.backend == "local":
+                from ..recover.backends import run_local
+
+                with host_span("assemble", "session"):
+                    pick, into = plan.kept, (N, fill)
+                return run_local(plan, v, pick, into)
             if fill:
                 with host_span("gather", "session"):
                     kept = v[list(plan.kept)]

@@ -54,11 +54,14 @@ def local_decode_callable(plan):
     return plan._local_fn
 
 
-def run_local(plan, v: np.ndarray) -> np.ndarray:
-    """Single-device decode on the kernel path (no network)."""
+def run_local(plan, v: np.ndarray, pick=None, into=None) -> np.ndarray:
+    """Single-device decode on the kernel path (no network).  `pick` and
+    `into` read the survivors from codeword rows and place the repaired
+    rows in the answer, on the device (`run_on_device`)."""
     return run_on_device(local_decode_callable(plan), v, plan.field.q,
-                         plan.device, "local_decode", kind=plan.spec.kind,
-                         K=plan.spec.K, E=len(plan.erased))
+                         plan.device, "local_decode", pick=pick, into=into,
+                         kind=plan.spec.kind, K=plan.spec.K,
+                         E=len(plan.erased))
 
 
 def _mesh_callables(plan) -> list:

@@ -233,9 +233,9 @@ class DecodePlan(PlanStats):
         """(K, |E|) repair matrix: erased symbols are v^T D per column."""
         return self.tables.D
 
-    def _check(self, v) -> tuple[np.ndarray, bool]:
+    def _check(self, v, pick=None) -> tuple[np.ndarray, bool]:
         v = np.asarray(v)
-        if v.shape[0] != self.spec.K:
+        if (v.shape[0] if pick is None else len(pick)) != self.spec.K:
             raise ValueError(
                 f"v must carry the K={self.spec.K} survivor symbols of "
                 f"plan.kept along its leading dim, got {v.shape}")
@@ -302,12 +302,14 @@ class DecodePlan(PlanStats):
 
         return _mesh_callables(self)[0].mesh.block
 
-    def data(self, v) -> np.ndarray:
+    def data(self, v, pick=None) -> np.ndarray:
         """Decode the full original data x (K, W) from the survivors (the
         degraded-read path).  Runs the `gf_matmul` kernel with S^-1 on the
         plan's device for the Fermat field, the exact host matmul otherwise
-        and on a host-only (simulator) plan — bitwise identical."""
-        v, squeeze = self._check(v)
+        and on a host-only (simulator) plan — bitwise identical.  `pick`:
+        the K rows of v that hold the survivors of `plan.kept`, picked on
+        the device where it runs (None: v is those rows)."""
+        v, squeeze = self._check(v, pick)
         f = self.field
         if f.q == FERMAT_Q and self.device is not None:
             from ..kernels.ops import decode_blocks
@@ -318,10 +320,11 @@ class DecodePlan(PlanStats):
                     device=self.device)
             Dd = self._Dd
             x = run_on_device(lambda vd: decode_blocks(vd, Dd), v, f.q,
-                              self.device, "local_data",
+                              self.device, "local_data", pick=pick,
                               kind=self.spec.kind, K=self.spec.K)
         else:
-            x = f.matmul(self.tables.Dd.T, v)
+            x = f.matmul(self.tables.Dd.T,
+                         v if pick is None else v[list(pick)])
         return x[:, 0] if squeeze else x
 
     def cost(self) -> LinearCost:

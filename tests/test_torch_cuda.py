@@ -243,6 +243,39 @@ def test_cuda_quickstart_matches_cpu(cuda_device, kind, K, R):
     assert gpu.failed == ()
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["codeword", "encode", "read", "rebuild",
+                                "decode"])
+def test_cuda_device_residues_match_cpu(cuda_device, op):
+    """The caller's rows as they are (negatives, values >= q, int64's
+    extremes, int32, strided) at 2^12 and 2^16 columns in turn, so the
+    pinned buffers are reused across sizes: bitwise the CPU session's
+    answers, each a fresh int64 array."""
+    from repro_torch.api import CodedSystem, CodeSpec
+    from torch_payloads import KINDS, payload
+
+    spec = CodeSpec(kind="rs", K=16, R=4)
+    gpu = CodedSystem(spec, backend="local")
+    cpu = CodedSystem(spec, backend="local", device="cpu")
+    dead = [1, 7, 19]
+    last = None
+    for i, kind in enumerate(KINDS):
+        for w in (1 << 12, 1 << 16):
+            x, v = payload(kind, 16, w, seed=i), payload(kind, 20, w, seed=w)
+            got = []
+            for s in (gpu, cpu):
+                if op in ("codeword", "encode"):
+                    got.append(getattr(s, op)(x))
+                else:
+                    s.fail(dead)
+                    got.append(getattr(s, op)(v))
+            assert got[0].dtype == np.int64 and got[0].flags.c_contiguous
+            assert np.array_equal(got[0], got[1]), (kind, w)
+            assert last is None or not np.shares_memory(got[0], last)
+            last = got[0]
+    assert gpu.failed == cpu.failed
+
+
 # ---------------- the stream pipeline, the queue --------------------------------
 
 @pytest.mark.cuda

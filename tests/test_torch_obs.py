@@ -63,3 +63,39 @@ def test_port_host_span_is_kept_when_its_block_raises():
     assert e["name"] == "fails" and "cat" not in e
     assert e["args"]["erased"] == 2 and e["args"]["hit"] is False
     assert e["args"]["minflt"] >= 0
+
+
+KERNELS = ("local_encode", "local_data", "local_decode")
+
+
+@pytest.mark.parametrize("op", ["codeword", "read", "rebuild"])
+def test_port_op_spans_take_residues_on_the_device(op):
+    """A traced op: `host_in` says the residues were taken on the device,
+    the session names the answer's rows in a `session.assemble` span, no
+    leg lies inside a session span, and only the kernels' own leg bears a
+    kernel's name (the rooflines read the kernels by those names)."""
+    t = CodedSystem(CodeSpec(kind="rs", K=8, R=4), backend="local",
+                    device="cpu")
+    x = RNG.integers(-FERMAT_Q, 2 * FERMAT_Q, (8, 5))
+    cw = t.codeword(x)
+    if op != "codeword":
+        t.fail([1, 9])
+        t.decode_plan
+    with trace.installed() as tracer:
+        getattr(t, op)(x if op == "codeword" else cw)
+    tracks = {e["args"]["name"]: e["pid"]
+              for e in tracer.to_dict()["traceEvents"]
+              if e["name"] == "process_name"}
+    legs = [e for e in tracer.events() if e["pid"] == tracks["backend"]]
+    session = [e for e in tracer.events() if e["pid"] == tracks["session"]]
+    assert [e["args"]["on_card"] for e in legs
+            if e["name"] == "host_in"] == [True]
+    assert [e["name"] for e in session] == ["assemble"]
+    for s in session:
+        for e in legs:
+            assert (e["ts"] >= s["ts"] + s["dur"]
+                    or e["ts"] + e["dur"] <= s["ts"]), (s["name"], e["name"])
+    kernel = [e["name"] for e in legs if e["name"].startswith(KERNELS)]
+    assert kernel == [{"codeword": "local_encode.ntt", "read": "local_data",
+                       "rebuild": "local_decode"}[op]]
+    assert {"residues_dev", "d2h", "host_out"} <= {e["name"] for e in legs}

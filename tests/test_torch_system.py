@@ -3,6 +3,7 @@ the CPU (`device="cpu"`: the kernels' plain versions), plus the port's
 device default and its import isolation from the JAX package."""
 import ast
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -17,6 +18,7 @@ from repro.recover import UndecodableError as JUndecodable
 from repro_torch.api import CodedSystem as TSystem
 from repro_torch.api import CodeSpec as TSpec
 from repro_torch.recover import Decoder, UndecodableError
+from torch_payloads import KINDS, payload
 
 torch.set_num_threads(1)
 
@@ -108,6 +110,106 @@ def test_codewords_cross_between_packages(kind, K, R, seed):
     assert np.array_equal(j.read(lost_t), x)        # port codeword, JAX read
     assert np.array_equal(t.rebuild(lost_j), cw_j)
     assert np.array_equal(j.rebuild(lost_t), cw_t)
+
+
+OPS = ["codeword", "encode", "read", "rebuild", "decode"]
+
+
+def _run(system, op, x, v, dead):
+    """One op of `system` on the (K, W) data x or the (N, W) rows v."""
+    if op in ("codeword", "encode"):
+        return getattr(system, op)(x)
+    system.fail(dead)
+    return getattr(system, op)(v)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("op", OPS)
+def test_device_residues_match_reference(op, kind):
+    """The residues the device takes (int64 or int32 rows, as the caller
+    holds them) are NumPy's `%`, bitwise, whatever the rows hold."""
+    j, t = _pair("rs", 16, 4, None)
+    x = payload(kind, 16, W, seed=OPS.index(op))
+    v = payload(kind, 20, W, seed=7)
+    dead = _pattern(16, 4)
+    got, want = _run(t, op, x, v, dead), _run(j, op, x, v, dead)
+    assert got.dtype == np.int64 and np.array_equal(got, want)
+    assert t.failed == j.failed
+
+
+FALLBACK = [np.float64, np.uint16, np.int16, np.uint64, np.bool_, np.str_]
+
+
+@pytest.mark.parametrize("dtype", FALLBACK, ids=lambda d: d.__name__)
+@pytest.mark.parametrize("op", ["codeword", "read", "rebuild"])
+def test_other_dtypes_take_the_host_residues(op, dtype):
+    """A payload of another dtype is reduced on the host (`on_card` false)
+    and gives what its int64 values give, or raises the error NumPy's `%`
+    raises for it."""
+    from repro_torch.obs import trace
+
+    t = TSystem(TSpec(kind="rs", K=16, R=4), backend="local", device="cpu")
+    rng = np.random.default_rng(11)
+    x64 = rng.integers(0, 2 if dtype is np.bool_ else 5000, (16, W))
+    v64 = rng.integers(0, 2 if dtype is np.bool_ else 5000, (20, W))
+    x, v = x64.astype(dtype), v64.astype(dtype)
+    try:
+        x % Q  # NumPy refuses some dtypes (strings; q beyond 16 bits)
+    except (TypeError, OverflowError) as err:
+        with pytest.raises(type(err), match=re.escape(str(err))):
+            _run(t, op, x, v, [1, 19])
+        return
+    want = _run(t, op, x64, v64, [1, 19])
+    with trace.installed() as tracer:
+        got = _run(t, op, x, v, [1, 19])
+    assert np.array_equal(got, want)
+    on_card = [e["args"]["on_card"] for e in tracer.events()
+               if e["name"] == "host_in"]
+    assert on_card == [False]
+
+
+@pytest.mark.parametrize("op", OPS)
+def test_answers_are_fresh_arrays_the_caller_owns(op):
+    t = TSystem(TSpec(kind="rs", K=16, R=4), backend="local", device="cpu")
+    dead = _pattern(16, 4)
+    first = [payload("negatives", r, W, seed=1) for r in (16, 20)]
+    second = [payload("int32", r, W, seed=2) for r in (16, 20)]
+    a = _run(t, op, *first, dead)
+    kept = a.copy()
+    b = _run(t, op, *second, dead)
+    for ans in (a, b):
+        assert ans.dtype == np.int64 and ans.flags.c_contiguous
+        assert ans.flags.writeable and ans.flags.owndata
+        assert not any(np.shares_memory(ans, p) for p in first + second)
+    assert not np.shares_memory(a, b)
+    assert np.array_equal(a, kept)          # unchanged by the next call
+    b[...] = -1                             # the caller may write its answer
+    assert np.array_equal(_run(t, op, *first, dead), kept)
+
+
+def test_two_threads_share_one_session_for_codewords():
+    import threading
+
+    t = TSystem(TSpec(kind="rs", K=16, R=4), backend="local", device="cpu")
+    xs = [payload(k, 16, W, seed=i) for i, k in enumerate(KINDS)]
+    want = [t.codeword(x) for x in xs]
+    bad: list = []
+
+    def work(order):
+        for _ in range(6):
+            for i in order:
+                if not np.array_equal(t.codeword(xs[i]), want[i]):
+                    bad.append(i)
+
+    n = len(xs)
+    threads = [threading.Thread(target=work, args=(order,)) for order in
+               (range(n), range(n - 1, -1, -1))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=120)
+    assert not any(th.is_alive() for th in threads)
+    assert bad == []
 
 
 def test_explicit_matrix_matches_reference():
@@ -255,19 +357,22 @@ def test_trace_splits_each_op_into_host_copy_and_kernel_spans():
               if e["name"] == "process_name"}
     legs = [e for e in tracer.events() if e["pid"] == tracks["backend"]]
     assert [e["name"] for e in legs] == [
-        "host_in", "h2d", "local_encode.ntt", "d2h", "host_out",
-        "host_in", "h2d", "local_data", "d2h", "host_out"]
+        "host_in", "h2d", "residues_dev", "local_encode.ntt", "place_dev",
+        "d2h", "host_out",
+        "host_in", "h2d", "residues_dev", "local_data", "d2h", "host_out"]
     assert all(e["cat"] == "kernel" for e in legs)
+    assert all(e["args"]["on_card"] for e in legs if e["name"] == "host_in")
     # the session's and the planner's host steps sit between the legs
     names = [(e["name"], {v: k for k, v in tracks.items()}[e["pid"]])
              for e in tracer.events()]
-    session = [("host_in", "backend"), ("h2d", "backend"),
-               ("local_encode.ntt", "backend"), ("d2h", "backend"),
-               ("host_out", "backend"), ("residues", "session"),
-               ("assemble", "session")]
+    session = [("assemble", "session"), ("host_in", "backend"),
+               ("h2d", "backend"), ("residues_dev", "backend"),
+               ("local_encode.ntt", "backend"), ("place_dev", "backend"),
+               ("d2h", "backend"), ("host_out", "backend")]
     planner = [("kept", "planner"), ("inverse", "planner"),
                ("repair", "planner"), ("plan", "planner")]
-    read = [("gather", "session"), ("host_in", "backend"), ("h2d", "backend"),
+    read = [("assemble", "session"), ("host_in", "backend"),
+            ("h2d", "backend"), ("residues_dev", "backend"),
             ("local_data", "backend"), ("d2h", "backend"),
             ("host_out", "backend")]
     assert names == session + planner + read
