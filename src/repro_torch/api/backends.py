@@ -28,6 +28,10 @@ the same numpy result (the output blocks are all-gathered).
 """
 from __future__ import annotations
 
+import sys
+import threading
+from collections import OrderedDict
+
 import numpy as np
 import torch
 
@@ -74,9 +78,69 @@ def _to_device(xh: torch.Tensor, device) -> torch.Tensor:
     return pinned.to(device)
 
 
+def _held(arrays: list, i: int) -> bool:
+    """Whether anything but the list `arrays` refers to `arrays[i]`: a name,
+    a NumPy view (whose `base` it is), a tensor of `torch.from_numpy`, an
+    exported buffer.  Exact in CPython, where an array that the list alone
+    holds counts two references here: the list's and the argument's."""
+    return sys.getrefcount(arrays[i]) > 2
+
+
+class AnswerPool:
+    """The int64 answers `run_on_device` hands out, handed out again once
+    their callers have let go of them, so that the widening writes pages
+    already faulted in instead of a fresh block's.
+
+    `take` hands out, of the arrays it tracks for the shape, the one handed
+    out last that nothing outside the pool holds (`_held`).  When every one
+    is held it allocates a new array and tracks it, and stops tracking the
+    one handed out longest ago: that array is its holder's alone from then
+    on, so answers a caller keeps drop out of the pool.  A caller that lets
+    each answer go before the next call reuses one array; one that holds
+    the last answer while it asks for the next, two in turn.
+
+    Bound: at most `PER_SHAPE` arrays for each of the `SHAPES` shapes asked
+    for last; when a shape falls out, its free arrays go back to the
+    allocator.  A weak reference does not hold an answer."""
+
+    SHAPES = 4
+    PER_SHAPE = 2
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._by_shape: OrderedDict[tuple, list] = OrderedDict()
+
+    def take(self, shape) -> tuple[np.ndarray, bool]:
+        """(a C-contiguous int64 array of `shape` that nothing but the pool
+        holds, whether it was tracked before).  Its contents are stale."""
+        shape = tuple(int(n) for n in shape)
+        with self._lock:
+            arrays = self._by_shape.pop(shape, [])
+            self._by_shape[shape] = arrays
+            if len(self._by_shape) > self.SHAPES:
+                self._by_shape.popitem(last=False)
+            for i in reversed(range(len(arrays))):
+                if not _held(arrays, i):
+                    arrays.append(arrays.pop(i))
+                    return arrays[-1], True
+            if len(arrays) == self.PER_SHAPE:
+                del arrays[0]
+            arrays.append(np.empty(shape, np.int64))
+            return arrays[-1], False
+
+    def tracked(self) -> dict:
+        """{shape: arrays tracked}, shapes from the one asked for longest ago."""
+        with self._lock:
+            return {s: len(a) for s, a in self._by_shape.items()}
+
+
+ANSWERS = AnswerPool()
+
+
 def run_on_device(fn, x: np.ndarray, q: int, device, name: str, *,
                   pick=None, into=None, **span_args) -> np.ndarray:
-    """numpy payload -> `fn` on `device` -> a fresh numpy int64 answer.
+    """numpy payload -> `fn` on `device` -> a numpy int64 answer the caller
+    owns.
 
     An int64 or int32 payload goes to the device as it is and its residues
     mod q are taken there; any other dtype is reduced to int32 on the host
@@ -88,14 +152,20 @@ def run_on_device(fn, x: np.ndarray, q: int, device, name: str, *,
              at `rows` (a systematic codeword: (N, range(K, N)); a rebuilt
              one: (N, erased)).
     On a CUDA device both copies go through pinned blocks of torch's
-    caching host allocator, and the int32 answer is widened on the host
-    into a fresh int64 array that the caller owns.
+    caching host allocator.  The int32 answer is widened on the host into
+    an int64 array from `ANSWERS` (on every device): one that an earlier
+    call handed out and its caller has let go of, its pages already
+    faulted in, or else a new one.  Either way it is C-contiguous,
+    writeable and owns its data, every element is written, and it shares
+    memory with nothing the caller holds.  The pool keeps at most two
+    arrays for each of the four shapes asked for last (`AnswerPool`).
 
     Each leg is its own `kernel_span`, so a trace splits an operation into
     host work ("host_in": the payload as a tensor; "host_out": the
-    widening), the copies ("h2d", "d2h"), the device's own glue
-    ("residues_dev": residues and picked rows; "place_dev": `fn`'s rows
-    into the answer) and the kernels (`name`)."""
+    widening, its arg `reused` true where the answer came from the pool),
+    the copies ("h2d", "d2h"), the device's own glue ("residues_dev":
+    residues and picked rows; "place_dev": `fn`'s rows into the answer)
+    and the kernels (`name`)."""
     x = np.asarray(x)
     on_card = x.dtype in _DEVICE_DTYPES
     with kernel_span("host_in", on_card=on_card):
@@ -131,8 +201,8 @@ def run_on_device(fn, x: np.ndarray, q: int, device, name: str, *,
             yh.copy_(y)
         else:
             yh = y
-    with kernel_span("host_out"):
-        out = np.empty(tuple(y.shape), np.int64)
+    with kernel_span("host_out") as span:
+        out, span["reused"] = ANSWERS.take(y.shape)
         torch.from_numpy(out).copy_(yh)
         del xh, xr, y, yh
     return out

@@ -280,12 +280,13 @@ def kernel_span(name: str, **args):
     track AND a `torch.profiler.record_function(name)` range, with the
     thread's minor page faults in `args["minflt"]`.  With a tracer installed
     the span ends with a device synchronise, so its duration covers the
-    kernels it launched (not just their enqueue).  Free (and
+    kernels it launched (not just their enqueue).  Yields the span's args
+    dict, which the block may add to, as `host_span` does.  Free (and
     torch-import-free) when no tracer is installed."""
     tracer = get_tracer()
     if tracer is None:
-        yield
+        yield args
         return
     with _ranged(tracer, name, name, pid="backend", tid="kernels",
                  cat="kernel", args=args, sync=True):
-        yield
+        yield args

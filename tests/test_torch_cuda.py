@@ -276,6 +276,37 @@ def test_cuda_device_residues_match_cpu(cuda_device, op):
     assert gpu.failed == cpu.failed
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["codeword", "read", "rebuild"])
+def test_cuda_dropped_answer_is_reused(cuda_device, op):
+    """On the card, an answer the caller let go between calls is handed
+    out again (`host_out`'s `reused`) and is bitwise the CPU session's."""
+    from repro_torch.api import CodedSystem, CodeSpec
+    from repro_torch.obs import trace
+    from torch_payloads import payload
+
+    spec = CodeSpec(kind="rs", K=16, R=4)
+    gpu = CodedSystem(spec, backend="local")
+    cpu = CodedSystem(spec, backend="local", device="cpu")
+    dead, w = [1, 7, 19], 1 << 16
+
+    def run(s, seed):
+        if op == "codeword":
+            return s.codeword(payload("negatives", 16, w, seed=seed))
+        s.fail(dead)
+        return getattr(s, op)(payload("int32", 20, w, seed=seed))
+
+    a = run(gpu, 1)
+    ptr = a.ctypes.data
+    del a
+    with trace.installed() as tracer:
+        b = run(gpu, 2)
+    assert b.ctypes.data == ptr
+    assert [e["args"]["reused"] for e in tracer.events()
+            if e["name"] == "host_out"] == [True]
+    assert np.array_equal(b, run(cpu, 2))
+
+
 # ---------------- the stream pipeline, the queue --------------------------------
 
 @pytest.mark.cuda

@@ -212,6 +212,119 @@ def test_two_threads_share_one_session_for_codewords():
     assert bad == []
 
 
+HOLDERS = {"name": lambda a: a, "view": lambda a: a[1:, ::2],
+           "view_of_a_view": lambda a: a[1:][:, 3:],
+           "tensor": torch.from_numpy, "memoryview": memoryview,
+           "frombuffer": lambda a: np.frombuffer(a, np.int64)}
+
+
+@pytest.mark.parametrize("holder", ["none"] + list(HOLDERS))
+def test_held_counts_every_holder_of_a_pooled_array(holder):
+    from repro_torch.api.backends import _held
+
+    arrays = [np.empty((4, 6), np.int64)]
+    h = HOLDERS[holder](arrays[0]) if holder != "none" else None
+    assert _held(arrays, 0) is (h is not None)
+    del h
+    assert not _held(arrays, 0)
+
+
+def _reuse_case(t, op, dead, seed, w=W):
+    return _run(t, op, payload("negatives", 16, w, seed=seed),
+                payload("int32", 20, w, seed=seed + 1), dead)
+
+
+@pytest.mark.parametrize("case", ["dropped", "name", "view", "tensor",
+                                  "shapes"])
+@pytest.mark.parametrize("op", ["codeword", "read", "rebuild"])
+def test_answers_come_from_pages_the_caller_let_go(op, case):
+    """An answer the caller let go is handed out again (`host_out`'s
+    `reused`), bitwise the JAX package's answer; one the caller, a view or
+    a tensor of it holds never is, and the caller's writes into it stay;
+    across many shapes the pool keeps within its bound."""
+    from repro_torch.api.backends import ANSWERS, AnswerPool
+    from repro_torch.obs import trace
+
+    j, t = _pair("rs", 16, 4, None)
+    dead = _pattern(16, 4)
+    if case == "shapes":
+        kept = []
+        for w in range(1, 3 * AnswerPool.SHAPES + 1):
+            for n in range(3):
+                a = _reuse_case(t, op, dead, n, w)
+                kept.append((a, a.copy()))
+                tracked = ANSWERS.tracked()
+                assert len(tracked) <= AnswerPool.SHAPES
+                assert max(tracked.values()) <= AnswerPool.PER_SHAPE
+            _reuse_case(t, op, dead, 9, w)  # let go at once
+        for i, (a, copy) in enumerate(kept):
+            assert np.array_equal(a, copy)
+            assert not any(np.shares_memory(a, b) for b, _ in kept[i + 1:])
+        return
+    a = _reuse_case(t, op, dead, 1)
+    ptr = a.ctypes.data
+    holder = HOLDERS[case](a) if case != "dropped" else None
+    if holder is not None:
+        holder[...] = -5  # the caller writes into its answer
+    del a
+    with trace.installed() as tracer:
+        b = _reuse_case(t, op, dead, 2)
+    reused = [e["args"]["reused"] for e in tracer.events()
+              if e["name"] == "host_out"]
+    assert np.array_equal(b, _reuse_case(j, op, dead, 2))
+    assert b.flags.owndata and b.flags.writeable and b.flags.c_contiguous
+    if holder is None:
+        assert b.ctypes.data == ptr and reused == [True]
+        return
+    assert b.ctypes.data != ptr and len(reused) == 1
+    held = holder.numpy() if case == "tensor" else holder
+    assert not np.shares_memory(b, held)
+    assert (held == -5).all()
+
+
+def test_two_threads_never_share_a_live_answer():
+    """Two threads on one session, each holding its last two answers while
+    it asks for the next: no answer handed out shares memory with one that
+    is live, and none of the live ones changes."""
+    import threading
+
+    t = TSystem(TSpec(kind="rs", K=16, R=4), backend="local", device="cpu")
+    xs = [payload(k, 16, W, seed=i) for i, k in enumerate(KINDS)]
+    want = [t.codeword(x) for x in xs]
+    live: dict = {}
+    lock = threading.Lock()
+    bad: list = []
+
+    def work(k, order):
+        for step in range(40):
+            i = order[step % len(order)]
+            got = t.codeword(xs[i])
+            with lock:
+                if any(np.shares_memory(got, a) for a, _ in live.values()):
+                    bad.append(("shared", k, step))
+                if any(not np.array_equal(a, want[n])
+                       for a, n in live.values()):
+                    bad.append(("changed", k, step))
+                live[(k, step % 2)] = (got, i)
+            del got
+
+    n = len(xs)
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=work, args=(k, order))
+                   for k, order in enumerate((list(range(n)),
+                                              list(range(n - 1, -1, -1))))]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=120)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(th.is_alive() for th in threads)
+    assert bad == []
+
+
 def test_explicit_matrix_matches_reference():
     """A universal spec may take the reference's matrix as a numpy A."""
     A = np.random.default_rng(9).integers(0, Q, (10, 5))
@@ -362,6 +475,8 @@ def test_trace_splits_each_op_into_host_copy_and_kernel_spans():
         "host_in", "h2d", "residues_dev", "local_data", "d2h", "host_out"]
     assert all(e["cat"] == "kernel" for e in legs)
     assert all(e["args"]["on_card"] for e in legs if e["name"] == "host_in")
+    assert all(type(e["args"]["reused"]) is bool for e in legs
+               if e["name"] == "host_out")
     # the session's and the planner's host steps sit between the legs
     names = [(e["name"], {v: k for k, v in tracks.items()}[e["pid"]])
              for e in tracer.events()]
