@@ -17,8 +17,7 @@
    at the main path's shapes and at edge shapes, and times kernel, plain
    version and a one-call PyTorch yardstick with CUDA events (for the NTT
    the (Z, Z) float64 DFT matrix, built on the card up to Z = 2^16; above
-   Z = 4096 the one-pass cluster kernel, the forced two-pass route and
-   `ntt_outer` alone in turns, at every Z from 2^13 to 2^16); then
+   Z = 4096 the one-pass cluster kernel at every Z from 2^13 to 2^16); then
    both designs of `gf_matmul_batched` (the CUDA-core `small` kernel and
    the tensor-core kernel's batched entry, each forced) at edge shapes and
    at a sweep of the mesh's combine shapes, 256 x (9 x 8).(8 x 2^18) among
@@ -148,10 +147,7 @@ other design, off the main path), and behind the
 one `ntt` wrapper `ntt` (the register kernel, Z <= 64), `ntt_slab` (two
 register passes through shared memory, 64 < Z <= 4096) and `ntt_cluster`
 (one pass for 4096 < Z <= 2^16 on a thread-block cluster that exchanges
-the leading stages through distributed shared memory).  The two-pass
-route above 4096 (`ntt_outer`, the leading stages, then `ntt_slab` on each
-4096-row block) is `ntt_cluster`'s other design: no main path takes it,
-and it runs forced, for checks and timing.
+the leading stages through distributed shared memory).
 
 Exits nonzero, printing no result, without a CUDA device, outside the
 repository, or when any check fails.  Imports nothing of the JAX package.
@@ -251,7 +247,6 @@ INT32_MAD_PER_S = 67e12 / 4
 DESIGNS = {"gf_matmul": "imma-u8-limbs", "ntt": "ntt-registers",
            "ntt_slab": "ntt-two-register-passes",
            "ntt_cluster": "ntt-cluster-dsmem-one-pass",
-           "ntt_outer": "ntt-leading-stages",
            "gf_matmul_batched": "cuda-cores-persistent-small-mk",
            "gf_matmul_batched_imma": "imma-u8-limbs-batched"}
 # gf_matmul_batched's designs: its wrapper's names -> DESIGNS' names
@@ -281,22 +276,6 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout
     return out.strip().splitlines()[0]
-
-
-def card_state() -> dict:
-    """The card's SM clock (MHz), power draw (W) and temperature (C) now."""
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
-         "--format=csv,noheader,nounits"],
-        capture_output=True, text=True, check=True, timeout=60).stdout
-    values = out.strip().splitlines()[0].split(", ")
-
-    def num(v):  # "[N/A]" stays text
-        try:
-            return float(v)
-        except ValueError:
-            return v
-    return {k: num(v) for k, v in zip(("sm_mhz", "power_w", "temp_c"), values)}
 
 
 def time_ms(fn, reps: int, warmup: int = 1) -> float:
@@ -414,22 +393,6 @@ def cluster_lines(logs: dict) -> None:
         print(json.dumps({"ntt_cluster_config": {"Z": Z, "rows": rows, **f}}))
 
 
-def outer_only(x, inverse: bool):
-    """ntt_outer alone on x (Z > 4096) into a fresh output: the leading
-    stages' share of the route above 4096, for timing."""
-    import importlib
-
-    import torch
-
-    mod = importlib.import_module("repro_torch.kernels.ntt")
-    Z = x.shape[0]
-    root, scale = mod.roots(Z, inverse)
-    out = torch.empty_like(x)
-    mod._outer(x, out, Z, root, scale, inverse,
-               torch.cuda.current_stream().cuda_stream)
-    return out
-
-
 # ---------------------------------------------------------------------------
 # kernel phase
 # ---------------------------------------------------------------------------
@@ -451,18 +414,15 @@ def kernel_phase(gen):
     def full(*shape):
         return torch.full(shape, Q - 1, device=dev, dtype=torch.int32)
 
-    def ntt_names(Z, forced=None):
-        """The kernels a Z-point transform launches (`forced`: a route)."""
+    def ntt_names(Z):
+        """The kernels a Z-point transform launches."""
         if Z <= REGS_MAX_Z:
             return ("ntt",)
         if Z <= SLAB_MAX_Z:
             return ("ntt_slab",)
-        if forced != "two-pass":
-            return ("ntt_cluster",)
-        return ("ntt_outer", "ntt_slab")
+        return ("ntt_cluster",)
 
     worst = dict.fromkeys(DESIGNS, 0)  # kernel vs plain version, per kernel
-    worst["two-pass"] = 0              # the forced route above 4096
 
     def check(name, got, want, kernels=()):
         err = max_abs_err(got, want)
@@ -503,20 +463,6 @@ def kernel_phase(gen):
         for inv in (False, True):
             check(f"ntt all-65536 Z={Z} inverse={inv}", ntt(x, inverse=inv),
                   ntt_plain(x, inverse=inv), ntt_names(Z))
-    def route_turns(x, Z, inv):
-        """The cluster kernel, the two-pass route (each forced) and
-        ntt_outer alone, in turns (cluster, two-pass, outer, outer,
-        two-pass, cluster) after a warm-up; and the card's state before."""
-        order = ("cluster", "two-pass", "outer", "outer", "two-pass", "cluster")
-        turns = {k: [] for k in order}
-        time_ms(lambda: ntt(x, inverse=inv), 10)  # warm-up, not kept
-        state = card_state()
-        for turn in order:
-            turns[turn].append(time_ms(
-                (lambda: outer_only(x, inv)) if turn == "outer" else
-                (lambda t=turn: ntt(x, inverse=inv, _route=t)), 30))
-        return turns, state
-
     # -- main-path shapes, checked and timed --------------------------------
     W = 1 << 18
     rows = []
@@ -538,30 +484,24 @@ def kernel_phase(gen):
             p_ms=time_ms(lambda: gf_matmul_plain(a, b), 3),
             l_ms=time_ms(library, 5)))
     # main = a shape a main path gives the kernel (summed into its entry of
-    # the kernels line); above 4096 the row times, in turns, the cluster
-    # kernel, the forced two-pass route (ntt_outer then ntt_slab, the other
-    # way round for the inverse) and ntt_outer alone
+    # the kernels line)
     for Z, C, inv, main, what in [
             (64, 4 * W, True, True, "inverse (64 x 2^20)"),
             (64, 4 * W, False, True, "forward (64 x 2^20)"),
             (DFT_K, DFT_W, False, True, "forward (4096 x 2^12)"),
             (DFT_K, DFT_W, True, False, "inverse (4096 x 2^12)"),
-            (DFT_BIG_K, DFT_W, False, True, "route forward (8192 x 2^12)"),
-            (DFT_BIG_K, DFT_W, True, False, "route inverse (8192 x 2^12)"),
-            (1 << 14, 1 << 11, False, False, "route forward (16384 x 2^11)"),
-            (1 << 14, 1 << 11, True, False, "route inverse (16384 x 2^11)"),
-            (1 << 15, 1 << 11, False, False, "route forward (32768 x 2^11)"),
-            (1 << 15, 1 << 11, True, False, "route inverse (32768 x 2^11)"),
-            (1 << 16, 1 << 10, False, False, "route forward (65536 x 2^10)"),
-            (1 << 16, 1 << 10, True, False, "route inverse (65536 x 2^10)")]:
+            (DFT_BIG_K, DFT_W, False, True, "forward (8192 x 2^12)"),
+            (DFT_BIG_K, DFT_W, True, False, "inverse (8192 x 2^12)"),
+            (1 << 14, 1 << 11, False, False, "forward (16384 x 2^11)"),
+            (1 << 14, 1 << 11, True, False, "inverse (16384 x 2^11)"),
+            (1 << 15, 1 << 11, False, False, "forward (32768 x 2^11)"),
+            (1 << 15, 1 << 11, True, False, "inverse (32768 x 2^11)"),
+            (1 << 16, 1 << 10, False, False, "forward (65536 x 2^10)"),
+            (1 << 16, 1 << 10, True, False, "inverse (65536 x 2^10)")]:
         x = rnd(Z, C)
         names = ntt_names(Z)
         got = ntt(x, inverse=inv)
         check(f"ntt {what}", got, ntt_plain(x, inverse=inv), names)
-        # above 4096 both routes in turns before the float64 yardstick (the
-        # state of a card that the main path's host work leaves idle) and
-        # again after it (the library's products heat the card)
-        cool = route_turns(x, Z, inv) if Z > SLAB_MAX_Z else None
         torch.cuda.reset_peak_memory_stats()
         dt = dft_matrix(Z, inv, dev)  # 34.4 GB at Z = 2^16
 
@@ -571,35 +511,27 @@ def kernel_phase(gen):
         check(f"library yardstick ntt {what}", library(), got)
         H = Z.bit_length() - 1
         ops = 3 * (Z // 2 * H * C) + (Z * C if inv else 0)  # mul, add, sub; scale
-        row = dict(name=names[0], what=what, main=main, nbytes=8 * Z * C,
-                   ops=ops, rate=INT32_MAD_PER_S, mads=None,
-                   k_ms=time_ms(lambda: ntt(x, inverse=inv), 30),
-                   p_ms=time_ms(lambda: ntt_plain(x, inverse=inv), 3),
-                   l_ms=time_ms(library, 3),
-                   library_peak_gb=torch.cuda.max_memory_allocated() / 1e9)
-        if Z > SLAB_MAX_Z:
-            row["turns_ms"], row["card_before"] = cool
-            row["after_library"] = dict(zip(("turns_ms", "card"),
-                                            route_turns(x, Z, inv)))
-            row["k_ms"] = sum(row["turns_ms"]["cluster"]) / 2  # the main path's
-        rows.append(row)
+        rows.append(dict(
+            name=names[0], what=what, main=main, nbytes=8 * Z * C, ops=ops,
+            rate=INT32_MAD_PER_S, mads=None,
+            k_ms=time_ms(lambda: ntt(x, inverse=inv), 30),
+            p_ms=time_ms(lambda: ntt_plain(x, inverse=inv), 3),
+            l_ms=time_ms(library, 3),
+            library_peak_gb=torch.cuda.max_memory_allocated() / 1e9))
         del x, got, library, dt
         torch.cuda.empty_cache()
 
-    # -- above 4096 each route forced: the cluster kernel at ragged widths
-    # around its 8-column clusters, the two-pass route; all-65536 (after the
-    # timed rows, so that their plain versions' load precedes no timing) --
+    # -- above 4096 the cluster kernel at ragged widths around its 8-column
+    # clusters and all-65536 (after the timed rows, so that their plain
+    # versions' load precedes no timing) --
     for h in range(13, 17):
         Z = 1 << h
-        for kind, widths in (("cluster", (1, 97, 4099)),
-                             ("two-pass", (1000 + 3 * h + 1,))):
-            for C in widths:
-                for x, what in ((rnd(Z, C), f"C={C}"), (full(Z, 257), "all-65536")):
-                    for inv in (False, True):
-                        check(f"ntt {kind} Z={Z} {what} inverse={inv}",
-                              ntt(x, inverse=inv, _route=kind),
-                              ntt_plain(x, inverse=inv),
-                              ntt_names(Z, kind) + (kind,) * (kind == "two-pass"))
+        for C in (1, 97, 4099):
+            for x, what in ((rnd(Z, C), f"C={C}"), (full(Z, 257), "all-65536")):
+                for inv in (False, True):
+                    check(f"ntt cluster Z={Z} {what} inverse={inv}",
+                          ntt(x, inverse=inv), ntt_plain(x, inverse=inv),
+                          ntt_names(Z))
 
     summary = {}
     for r in rows:
@@ -615,16 +547,6 @@ def kernel_phase(gen):
                                            INT32_MAD_PER_S)[0]
         if "library_peak_gb" in r:  # the card's peak while the yardstick ran
             line["library_peak_gb"] = r["library_peak_gb"]
-        if "turns_ms" in r:  # above 4096: both routes and ntt_outer alone
-            means = {k: sum(v) / len(v) for k, v in r["turns_ms"].items()}
-            line.update(turns_ms=r["turns_ms"], card_before=r["card_before"],
-                        faster=min(("cluster", "two-pass"), key=means.get),
-                        bound_shares={k: b_ms / v for k, v in means.items()})
-            after = {k: sum(v) / len(v)
-                     for k, v in r["after_library"]["turns_ms"].items()}
-            line["after_library"] = {**r["after_library"], "faster": min(
-                ("cluster", "two-pass"), key=after.get)}
-            r["means"] = means
         print(json.dumps(line))
         if not r["main"]:
             continue
@@ -636,18 +558,6 @@ def kernel_phase(gen):
         s["plain_ms"] += r["p_ms"]
         s["library_ms"] += r["l_ms"]
         s["bound_ms"] += b_ms
-        if "means" in r:  # the main path's route beside the forced other one
-            s["designs"] = {
-                "cluster": {"design": DESIGNS["ntt_cluster"],
-                            "ms": r["means"]["cluster"],
-                            "bound_share": b_ms / r["means"]["cluster"],
-                            "max_abs_err": worst["ntt_cluster"]},
-                "two-pass": {"design": f'{DESIGNS["ntt_outer"]} + '
-                                       f'{DESIGNS["ntt_slab"]}',
-                             "ms": r["means"]["two-pass"],
-                             "outer_ms": r["means"]["outer"],
-                             "bound_share": b_ms / r["means"]["two-pass"],
-                             "max_abs_err": worst["two-pass"]}}
     for name, s in summary.items():
         s["max_abs_err"] = worst[name]
     return summary
@@ -713,7 +623,6 @@ def read_counts() -> dict:
             "ntt": ntt.launches_by_kernel["registers"],
             "ntt_slab": ntt.launches_by_kernel["slab"],
             "ntt_cluster": ntt.launches_by_kernel["cluster"],
-            "ntt_outer": ntt.launches_by_kernel["outer"],
             "gf_matmul_batched": by_design["small"],
             "gf_matmul_batched_imma": by_design["imma"]}
 
@@ -764,14 +673,14 @@ def main_path_phase():
                       "rebuild_exact": True}))
 
     # the other encode routes: dense field matmul and two large dfts (the
-    # dft 8192 encode: exactly one one-pass cluster launch, no two-pass)
+    # dft 8192 encode: exactly one one-pass cluster launch)
     for spec, W, impl, kernels, cols in [
             (CodeSpec(kind="universal", K=256, R=64, seed=0), MAIN_W, "dense",
              ("gf_matmul",), 64),
             (CodeSpec(kind="dft", K=DFT_K, R=DFT_K), DFT_W, "ntt",
              ("ntt_slab",), 64),
             (CodeSpec(kind="dft", K=DFT_BIG_K, R=DFT_BIG_K), DFT_W, "ntt",
-             {"ntt_cluster": 1, "ntt_outer": 0, "ntt_slab": 0}, BIG_CHECK_COLS)]:
+             {"ntt_cluster": 1, "ntt_slab": 0}, BIG_CHECK_COLS)]:
         x = rng.integers(0, Q, (spec.K, W), dtype=np.int64)
         reset_counts()
         system = CodedSystem(spec, backend="local", trace=True)
@@ -2710,7 +2619,7 @@ def main() -> int:
                         "library_ms": s["library_ms"], "design": DESIGNS[name],
                         "bound_share": s["bound_ms"] / s["ms"],
                         "shapes": s["shapes"]})
-        if "designs" in s:  # gf_matmul_batched, ntt_cluster: both designs
+        if "designs" in s:  # gf_matmul_batched: both designs
             kernels[-1]["designs"] = s["designs"]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -31,6 +31,7 @@ from __future__ import annotations
 import sys
 import threading
 from collections import OrderedDict
+from contextlib import nullcontext
 
 import numpy as np
 import torch
@@ -38,8 +39,9 @@ import torch
 from ..core import schedule
 from ..core.field import FERMAT_Q
 from ..core.simulator import RoundNetwork
-from ..obs.trace import kernel_span
-from .registry import Backend, BackendCapabilityError, register_backend
+from ..obs.trace import host_span, kernel_span
+from .registry import (Backend, BackendCapabilityError, get_backend,
+                       register_backend)
 
 
 def run_simulator(plan, x: np.ndarray) -> tuple[np.ndarray, RoundNetwork]:
@@ -208,6 +210,32 @@ def run_on_device(fn, x: np.ndarray, q: int, device, name: str, *,
     return out
 
 
+def host_layout(n: int, q: int, v: np.ndarray, at=None, rows=None,
+                rows_at=(), *, track: str | None = None) -> np.ndarray:
+    """The host's layout of an answer of n rows, the rule `run_on_device`'s
+    `into` follows on the device: the residues mod q of the caller's rows v
+    at the positions `at` (None: the first len(v)), and the computed `rows`
+    at the positions `rows_at`.  Returns a new (n, ...) int64 array (v's
+    residues themselves where they fill it).  With a `track` the residues
+    and the placing are the spans "residues" and "assemble" on it."""
+    def span(name):
+        return nullcontext() if track is None else host_span(name, track)
+
+    with span("residues"):
+        out = (v % q).astype(np.int64)
+    rows_at = list(rows_at)
+    if at is None and len(out) == n and not rows_at:
+        return out
+    with span("assemble"):
+        if at is not None or len(out) != n:
+            res, out = out, np.empty((n,) + out.shape[1:], np.int64)
+            out[slice(len(res)) if at is None else list(at)] = res
+            del res  # its pages are released in the span
+        if rows_at:
+            out[rows_at] = rows
+    return out
+
+
 def local_encode_callable(plan):
     """The plan's local-encode function (K, w) int32 -> (R, w) int32 on
     `plan.device`, built once and cached on the plan.
@@ -238,13 +266,15 @@ def local_encode_callable(plan):
     return plan._local_fn
 
 
-def run_local(plan, x: np.ndarray, into=None) -> np.ndarray:
+def run_local(plan, x: np.ndarray, pick=None, into=None) -> np.ndarray:
     """Single-device encode on the kernel path (no network): the cached
-    NTT fast path or dense field matmul, per the planner.  `into` places
-    the parity in a larger answer on the device (`run_on_device`)."""
+    NTT fast path or dense field matmul, per the planner.  `pick` and
+    `into` read rows of x and place the parity in a larger answer, on the
+    device (`run_on_device`)."""
     return run_on_device(local_encode_callable(plan), x, plan.field.q,
                          plan.device, f"local_encode.{plan.local_impl}",
-                         into=into, kind=plan.spec.kind, K=plan.spec.K)
+                         pick=pick, into=into, kind=plan.spec.kind,
+                         K=plan.spec.K)
 
 
 def _mesh_axes(plan):
@@ -268,6 +298,8 @@ def build_mesh_callable(plan):
     from ..core import shardmap_exec as se
     from ..core.parity import mesh_parity_encode
 
+    if not isinstance(get_backend(plan.backend), MeshBackend):
+        raise ValueError("mesh_callable() is for backend='mesh' plans")
     spec = plan.spec
     mesh = se.ProcMesh(spec.K, plan.device, tiered=_mesh_axes(plan))
 
@@ -359,6 +391,32 @@ class LocalBackend(Backend):
 
         return run_dec(plan, v)
 
+    def run_into(self, plan, v, pick=None, into=None):
+        """The device reads the rows `pick` and lays the answer out."""
+        if plan.op == "encode":
+            return run_local(plan, v, pick, into)
+        from ..recover.backends import run_local as run_dec
+
+        return run_dec(plan, v, pick, into)
+
+    def stream_program(self, plan):
+        if plan.op == "encode":
+            return local_encode_callable(plan), None
+        from ..recover.backends import local_decode_callable
+
+        return local_decode_callable(plan), None
+
+    def describe_line(self, plan):
+        if plan.op != "encode":
+            return None
+        impl = ("O(K log K) NTT fast path (CUDA ntt kernels)"
+                if plan.local_impl == "ntt"
+                else "CUDA gf_matmul field-matmul kernel")
+        plain = ("" if plan.device.type == "cuda"
+                 else " (the kernels' plain versions)")
+        return (f"  note    : local backend runs the {impl} on "
+                f"{plan.device}{plain}; no schedule is executed")
+
 
 @register_backend("mesh")
 class MeshBackend(Backend):
@@ -403,3 +461,25 @@ class MeshBackend(Backend):
         from ..recover.backends import run_mesh as run_dec
 
         return run_dec(plan, v)
+
+    def stream_program(self, plan):
+        """This rank's program, and its block of the payload's rows."""
+        if plan.op == "encode":
+            fn = plan.mesh_callable()
+            return fn, fn.mesh.block
+        from ..recover.backends import _mesh_callables, mesh_decode_fn
+
+        return mesh_decode_fn(plan), _mesh_callables(plan)[0].mesh.block
+
+    def describe_line(self, plan):
+        """The plan's (encode or decode) layout — G ranks x K/G processors
+        — and, once its mesh program exists, the legs it has run by tier."""
+        built = (getattr(plan, "_mesh_fn", None)
+                 or (getattr(plan, "_mesh_fns", None) or [None])[0])
+        if built is not None:
+            return f"  mesh    : {built.mesh.describe()}"
+        from ..core.shardmap_exec import world
+
+        G = world()[0]
+        return (f"  mesh    : G={G} ranks x {plan.spec.K // G} processors on "
+                f"{plan.device}; no legs run yet")

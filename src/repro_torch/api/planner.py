@@ -314,22 +314,6 @@ class EncodePlan(PlanStats):
 
         return run_simulator(self, x)  # (y, RoundNetwork) pair
 
-    def _stream_device_fn(self):
-        """The per-chunk device function of the pipeline: (K, w) int32 ->
-        (R, w) int32 on `plan.device` ((K/G, w), this rank's block, on the
-        mesh; (K, w) out for dft)."""
-        if self.backend == "mesh":
-            return self.mesh_callable()
-        from .backends import local_encode_callable
-
-        return local_encode_callable(self)
-
-    def _stream_rows(self) -> slice | None:
-        """The payload rows this rank copies to its device (the mesh
-        block), or None for all."""
-        return self.mesh_callable().mesh.block if self.backend == "mesh" \
-            else None
-
     def schedule_ir(self):
         """The plan's `core.schedule.RoundIR`: the canonical per-method
         program from the host tables, with `tier_commute(placement)`
@@ -347,8 +331,6 @@ class EncodePlan(PlanStats):
         block on `plan.device` -> (R, w) sink values ((K, w) for dft);
         built once, its table rows moved to the device once, kept for the
         plan's lifetime."""
-        if self.backend != "mesh":
-            raise ValueError("mesh_callable() is for backend='mesh' plans")
         if self._mesh_fn is None:
             from .backends import build_mesh_callable
 
@@ -411,31 +393,10 @@ class EncodePlan(PlanStats):
                     f"  tiers   : intra C1={tc.intra.C1} C2={tc.intra.C2} | "
                     f"inter C1={tc.inter.C1} C2={tc.inter.C2}"
                     + (f" (model C ~ {us:.1f} us)" if us is not None else ""))
-        if self.backend == "local":
-            impl = ("O(K log K) NTT fast path (CUDA ntt kernels)"
-                    if self.local_impl == "ntt"
-                    else "CUDA gf_matmul field-matmul kernel")
-            plain = ("" if self.device.type == "cuda"
-                     else " (the kernels' plain versions)")
-            lines.append(f"  note    : local backend runs the {impl} on "
-                         f"{self.device}{plain}; no schedule is executed")
-        if self.backend == "mesh":
-            lines.append(f"  mesh    : {mesh_note(self)}")
+        line = get_backend(self.backend).describe_line(self)
+        if line is not None:
+            lines.append(line)
         return "\n".join(lines)
-
-
-def mesh_note(plan) -> str:
-    """A mesh plan's (encode or decode) layout — G ranks x K/G processors —
-    and, once its mesh program exists, the legs it has run by tier."""
-    built = (getattr(plan, "_mesh_fn", None)
-             or (getattr(plan, "_mesh_fns", None) or [None])[0])
-    if built is not None:
-        return built.mesh.describe()
-    from ..core.shardmap_exec import world
-
-    G = world()[0]
-    return (f"G={G} ranks x {plan.spec.K // G} processors on {plan.device}; "
-            "no legs run yet")
 
 
 # ---------------------------------------------------------------------------

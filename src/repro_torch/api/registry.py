@@ -27,6 +27,14 @@ Third-party / experimental executors plug in without touching core:
 
     plan = Encoder.plan(spec, backend="mybackend")
 
+The session lays out codewords and rebuilt blocks through
+`Backend.run_into`, whose default composes `encode` / `decode` with the
+host's layout; a backend may override it to lay them out where it computes
+them (the local backend does, on the device).  A `supports_stream`
+backend gives `api.stream` its device program (`stream_program`), and
+`describe_line` adds the backend's own line to `plan.describe()`; the
+session and the planners never ask which backend they run on.
+
 Capabilities are *declared* up front — `supports_stream`,
 `measures_network`, `host_only`, `supports_field(q)`,
 `device_requirement(spec)` — and
@@ -42,6 +50,7 @@ from typing import TYPE_CHECKING
 from ..core.cost_model import LinearCost
 from ..obs import drift as _drift
 from ..obs.metrics import REGISTRY as _METRICS
+from ..obs.trace import host_span
 
 if TYPE_CHECKING:
     from .spec import CodeSpec
@@ -85,7 +94,8 @@ class Backend:
     Declared capabilities (override as needed):
 
       supports_stream   — the backend provides a device pipeline for
-                          `plan.run_stream` (built-in: local).
+                          `plan.run_stream` (`stream_program`; built-in:
+                          local, mesh).
                           Backends without it still stream correctly via
                           per-chunk `encode`/`decode` calls.
       measures_network  — runs yield exact (C1, C2) network stats,
@@ -146,6 +156,43 @@ class Backend:
         `plan.kept`) -> (|E|, w) repaired symbols, int64 mod q."""
         raise BackendCapabilityError(
             f"backend {self.name!r} does not implement decode")
+
+    def run_into(self, plan, v, pick=None, into=None):
+        """Run `plan` (encode or decode, `plan.op`) on the rows `pick` of the
+        (k, w) payload v (None: all of them) and lay the answer out by
+        `into`: None, the plan's rows; or (n, rows), n int64 rows holding
+        v's residues mod q in the first len(v) and the plan's rows at
+        `rows` (a systematic codeword: (N, range(K, N)); a rebuilt one:
+        (N, erased)) — `api.backends.run_on_device`'s contract.  This
+        default runs `encode` / `decode` and lays the rows out on the host
+        (`api.backends.host_layout`), as the session's "gather",
+        "residues" and "assemble" spans; the local backend does both on
+        the device."""
+        from .backends import host_layout
+
+        picked = v
+        if pick is not None:
+            with host_span("gather", "session"):
+                picked = v[list(pick)]
+        run = self.encode if plan.op == "encode" else self.decode
+        y = run(plan, picked)
+        del picked
+        if into is None:
+            return y
+        return host_layout(into[0], plan.field.q, v, rows=y, rows_at=into[1],
+                           track="session")
+
+    def stream_program(self, plan):
+        """A `supports_stream` backend's device pipeline for `plan`
+        (`api.stream`): the per-chunk function, (k, w) int32 rows on
+        `plan.device` -> the plan's (R, w) / (|E|, w) int32 rows, and the
+        payload rows this rank copies to its device (None: all)."""
+        raise BackendCapabilityError(
+            f"backend {self.name!r} has no device pipeline")
+
+    def describe_line(self, plan) -> str | None:
+        """The backend's own last line of `plan.describe()`, or None."""
+        return None
 
 
 def resolve_device(device=None):

@@ -411,8 +411,8 @@ def run_stream(plan, payload, *, chunk_w: int | None = None
     network-measuring backend (simulator) runs lockstep per chunk and
     records exact per-chunk C1/C2 on `plan.stream_stats`; a
     `supports_stream` backend (local, mesh) runs the device pipeline over
-    the plan's `_stream_device_fn()` on `plan.device` (a mesh rank copies
-    only its block of each chunk, `plan._stream_rows()`); any other registered
+    its `stream_program(plan)` on `plan.device` (a mesh rank copies only
+    its block of each chunk); any other registered
     backend streams by plain per-chunk `encode`/`decode` calls — no
     pipelining, but the bitwise contract still holds.
     """
@@ -441,10 +441,9 @@ def run_stream(plan, payload, *, chunk_w: int | None = None
             yield y
         return
     if backend.supports_stream:
-        stage = device_stage(plan._stream_device_fn(), plan.device,
-                             plan.field.q)
-        yield from _pipelined(_block_rows(chunks, plan._stream_rows()),
-                              stage)
+        fn, rows = backend.stream_program(plan)
+        stage = device_stage(fn, plan.device, plan.field.q)
+        yield from _pipelined(_block_rows(chunks, rows), stage)
         return
     run_chunk = backend.encode if plan.op == "encode" else backend.decode
     for c in chunks:

@@ -20,7 +20,11 @@ the live plans, decode plans are re-planned automatically whenever the
 erasure pattern changes (and cached per pattern via the Decoder's LRU),
 and every execution runs on the registered `Backend` the session was
 opened with, on the session's torch device ("cuda" unless `device=` says
-otherwise; the host-only simulator has none).  `encode_stream`/
+otherwise; the host-only simulator has none).  The session never names
+its backend: a codeword and an N-row rebuild go through `Backend.run_into`
+(the local backend lays the answer out on the device, the others on the
+host), and every other host layout through `api.backends.host_layout`.
+`encode_stream`/
 `decode_stream`/`rebuild_stream`/`encode_batched` run the streaming engine
 (`api.stream`: on the card, a copy stream, pinned buffers and events
 overlap each chunk's transfer with the previous chunk's kernels), and
@@ -55,6 +59,7 @@ from typing import Any, Iterable, Iterator
 import numpy as np
 
 from ..obs.trace import host_span
+from .backends import host_layout
 from .planner import ALPHA_DEFAULT, BETA_BITS_DEFAULT, EncodePlan, Encoder
 from .registry import get_backend, plan_device
 from .spec import CodeSpec
@@ -278,25 +283,20 @@ class CodedSystem:
         return self._enc.run(x)
 
     def codeword(self, x) -> np.ndarray:
-        """The full systematic codeword [x | parity]: (K, W) -> (N, W).  On
-        the local backend the device places x's residues and the parity in
-        one (N, W) answer; elsewhere the host concatenates them."""
+        """The full systematic codeword [x | parity]: (K, W) -> (N, W),
+        laid out by the session's backend (`Backend.run_into`): the local
+        backend places x's residues and the parity in one answer on the
+        device, the others on the host."""
         x = np.asarray(x)
         K, N = self.spec.K, self.spec.N
-        if self.backend == "local" and x.ndim in (1, 2) and x.shape[0] == K:
-            from .backends import run_local
-
-            with host_span("assemble", "session"):
-                into = (N, range(K, N))
-            cw = run_local(self._enc, x[:, None] if x.ndim == 1 else x, into)
-            return cw[:, 0] if x.ndim == 1 else cw
-        parity = self._enc.run(x)
-        with host_span("residues", "session"):
-            data = (x % self.spec.q).astype(np.int64)
+        if x.ndim not in (1, 2) or x.shape[0] != K:
+            raise ValueError(f"x must be the (K={K},) or (K={K}, W) data "
+                             f"block, got {x.shape}")
         with host_span("assemble", "session"):
-            cw = np.concatenate([data, parity], axis=0)
-            del data, parity  # the parts' pages are released in the span
-        return cw
+            into = (N, range(K, N))
+        cw = get_backend(self.backend).run_into(
+            self._enc, x[:, None] if x.ndim == 1 else x, into=into)
+        return cw[:, 0] if x.ndim == 1 else cw
 
     def encode_stream(self, payload, *, chunk_w: int | None = None
                       ) -> Iterator[np.ndarray]:
@@ -344,8 +344,8 @@ class CodedSystem:
                 raise ValueError(
                     f"expected (N={self.spec.N}, ...) or (K={self.spec.K},"
                     f" ...) rows, got leading dim {v.shape[0]}")
-            with host_span("residues", "session"):
-                return (v[: self.spec.K] % self.spec.q).astype(np.int64)
+            return host_layout(self.spec.K, self.spec.q, v[: self.spec.K],
+                               track="session")
         plan = self.decode_plan  # pinned: one pattern for slice + data
         if v.shape[0] == self.spec.N and plan.device is not None:
             with host_span("assemble", "session"):
@@ -407,40 +407,22 @@ class CodedSystem:
     def _rebuild_block(self, v: np.ndarray, plan) -> np.ndarray:
         """One (N, w) healed block from an (N, w)/(K, w) survivor block
         (the non-streamed body of `rebuild`; pattern pinned by `plan`).
-        The repaired rows are computed first and scattered after, so the
-        session's host spans and the device call's legs never nest."""
+        From N rows the session's backend repairs and lays out the block
+        (`Backend.run_into`); from K rows the repaired rows are computed
+        first and laid out on the host after, so the session's host spans
+        and the device call's legs never nest."""
         N, K, q = self.spec.N, self.spec.K, self.spec.q
         if v.shape[0] == N:
-            fill = list(plan.erased)
-            if fill and self.backend == "local":
-                from ..recover.backends import run_local
-
-                with host_span("assemble", "session"):
-                    pick, into = plan.kept, (N, fill)
-                return run_local(plan, v, pick, into)
-            if fill:
-                with host_span("gather", "session"):
-                    kept = v[list(plan.kept)]
-                rows = plan.run(kept)
-                del kept
-            with host_span("residues", "session"):
-                healed = (v % q).astype(np.int64)
-            if fill:
-                with host_span("assemble", "session"):
-                    healed[fill] = rows
-                    del rows
-            return healed
+            if not plan.erased:
+                return host_layout(N, q, v, track="session")
+            with host_span("assemble", "session"):
+                pick, into = plan.kept, (N, plan.erased)
+            return get_backend(self.backend).run_into(plan, v, pick, into)
         if v.shape[0] == K:
             comp = self._complement_plan(plan)
             rows = comp.run(v)
-            with host_span("residues", "session"):
-                data = (v % q).astype(np.int64)
-            with host_span("assemble", "session"):
-                healed = np.empty((N, v.shape[1]), np.int64)
-                healed[list(comp.kept)] = data
-                healed[list(comp.erased)] = rows
-                del data, rows
-            return healed
+            return host_layout(N, q, v, at=comp.kept, rows=rows,
+                               rows_at=comp.erased, track="session")
         raise ValueError(
             f"expected the full (N={N}, ...) codeword or the (K={K}, ...) "
             f"survivor symbols of system.kept, got leading dim {v.shape[0]}")
@@ -471,37 +453,25 @@ class CodedSystem:
             rows = first.shape[0]
             chunks = itertools.chain((first,), split)
             if rows == N:
-                dplan = plan
+                dplan, at = plan, None
                 kept_idx = list(plan.kept)
-                fill = list(plan.erased)
 
                 def slice_fn(c):
                     return c[kept_idx]
-
-                def assemble(c, y):
-                    healed = (c % q).astype(np.int64)
-                    if fill:
-                        healed[fill] = y
-                    return healed
             elif rows == K:
                 dplan = self._complement_plan(plan)
-                kept_idx, comp_idx = list(dplan.kept), list(dplan.erased)
+                at = dplan.kept
 
                 def slice_fn(c):
                     return c
-
-                def assemble(c, y):
-                    healed = np.empty((N, c.shape[1]), np.int64)
-                    healed[kept_idx] = (c % q).astype(np.int64)
-                    healed[comp_idx] = y
-                    return healed
             else:
                 raise ValueError(
                     f"rebuild_stream chunks must carry N={N} codeword rows "
                     f"or the K={K} kept survivor rows, got {rows}")
             for c, y in stream_mod.run_paired_stream(dplan, chunks, slice_fn,
                                                      chunk_w=cw):
-                yield assemble(c, y)
+                yield host_layout(N, q, c, at=at, rows=y,
+                                  rows_at=dplan.erased)
             self.heal(plan.erased)
 
         return _gen()

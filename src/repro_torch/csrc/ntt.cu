@@ -21,7 +21,7 @@
 // 536.9 MB = 0.160 ms; at the dft encode's (4096, 2^12), 134.2 MB = 0.040
 // ms; at (8192, 2^12) 0.080 ms and at (65536, 2^10) 0.160 ms.
 //
-// Four kernels; the wrapper picks by Z.
+// Three kernels; the wrapper picks by Z.
 //
 // ntt_regs (Z <= 64, the rs codeword's Z = 64): each thread owns one column
 // and holds all Z values in registers.  Row r of column c is x[r C + c], so
@@ -65,24 +65,9 @@
 // 32-byte sector, and ran slower.  Every product with a stage twiddle or a
 // forward twist factor takes the 32-bit `mulmod_tw`.
 //
-// ntt_outer (4096 < Z <= 2^16): Z = Z0 * 4096 with Z0 <= 16.  By the same
-// split, the first log2 Z0 DIF stages are a pure Z0-point DIF of each
-// sequence x[j + a 4096] followed by the twist root^(j rev(a)); after them
-// each block of 4096 contiguous rows is an independent 4096-point DIF with
-// root_4096 = root^Z0, which ntt_slab runs on the (Z0, 4096, C) view (grid.y
-// = Z0).  ntt_outer gives each thread one (j, column) pair, its Z0 values in
-// registers; a warp covers 32 consecutive columns of one row.  Forward:
-// ntt_outer then ntt_slab; inverse: ntt_slab (scale 1) then ntt_outer's
-// inverse (inverse twist with Z^-1 folded in, then the Z0-point inverse
-// stages).  Two passes over device memory, so at best half the one-pass
-// bound.  Both kernels may run in place (x == out): every thread reads all of
-// its values before it writes any, and the slab's blocks own disjoint
-// columns.  The main path does not take this route: only
-// `ntt(..., _route="two-pass")` runs it, as a check and a yardstick.
-//
-// ntt_cluster (4096 < Z <= 2^16, the main path): the same split in one pass,
-// on a thread-block cluster (Hopper) of Z0 = Z / R blocks that each hold R
-// rows.  A column at Z = 2^16 is 256 KB, more than one block's 227 KB of
+// ntt_cluster (4096 < Z <= 2^16): the slab's split with Z1 = Z0 = Z / R and
+// Z2 = R, in one pass, on a thread-block cluster (Hopper) of Z0 blocks that
+// each hold R rows.  A column at Z = 2^16 is 256 KB, more than one block's 227 KB of
 // shared memory; the cluster's distributed shared memory holds it.  The
 // block layout (`with_layout`): R = 2048 rows of 8 columns up to Z = 2^15
 // (256 threads, 66,560 bytes: two blocks an SM, so one block's loads and
@@ -327,62 +312,11 @@ cudaError_t launch_slab(const uint32_t* x, uint32_t* out, const uint32_t* twist,
 }
 
 // ---------------------------------------------------------------------------
-// ntt_outer: the leading log2 Z0 stages of 4096 < Z <= 2^16 (see above)
-// ---------------------------------------------------------------------------
-
-constexpr int OUTER_ROWS = 4096;      // the inner transform ntt_slab finishes
-constexpr int OUTER_THREADS = 256;    // 32 columns x 8 sequences j
-constexpr int OUTER_MAX_L = 4;        // Z0 <= 16
-
-struct OuterTwiddles {  // kernel parameter: root_Z0^e = root^(4096 e), e < Z0 / 2
-  uint32_t w[1 << (OUTER_MAX_L - 1)];
-};
-
-template <int L0, bool INV>
-__global__ void __launch_bounds__(OUTER_THREADS)
-ntt_outer(const uint32_t* x, uint32_t* out, const uint32_t* __restrict__ twist,
-          long long C, const __grid_constant__ OuterTwiddles tw) {
-  constexpr int Z0 = 1 << L0;
-  const long long col = (long long)blockIdx.x * 32 + threadIdx.x % 32;
-  const int j = blockIdx.y * (OUTER_THREADS / 32) + threadIdx.x / 32;
-  if (col >= C) return;
-  const uint32_t* xb = x + (long long)j * C + col;
-  uint32_t* ob = out + (long long)j * C + col;
-  uint32_t v[Z0];
-#pragma unroll
-  for (int a = 0; a < Z0; ++a) v[a] = __ldcs(xb + (long long)a * OUTER_ROWS * C);
-  if (!INV) {
-    dif<L0, false>(v, tw.w);
-#pragma unroll
-    for (int a = 1; a < Z0; ++a)  // twist root^(j rev(a)); 1 at a = 0
-      v[a] = mulmod_tw(v[a], __ldg(twist + a * OUTER_ROWS + j));
-  } else {
-#pragma unroll
-    for (int a = 0; a < Z0; ++a)  // inverse twist, Z^-1 folded in
-      v[a] = mulmod(v[a], __ldg(twist + a * OUTER_ROWS + j));
-    dif<L0, true>(v, tw.w);
-  }
-#pragma unroll
-  for (int a = 0; a < Z0; ++a) __stcs(ob + (long long)a * OUTER_ROWS * C, v[a]);
-}
-
-template <int L0>
-cudaError_t launch_outer(const uint32_t* x, uint32_t* out, const uint32_t* twist,
-                         const OuterTwiddles& tw, long long C, bool inverse,
-                         cudaStream_t stream) {
-  const dim3 grid((unsigned)((C + 31) / 32), OUTER_ROWS / (OUTER_THREADS / 32));
-  if (inverse)
-    ntt_outer<L0, true><<<grid, OUTER_THREADS, 0, stream>>>(x, out, twist, C, tw);
-  else
-    ntt_outer<L0, false><<<grid, OUTER_THREADS, 0, stream>>>(x, out, twist, C, tw);
-  return cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
 // ntt_cluster: 4096 < Z <= 2^16 in one pass (see above)
 // ---------------------------------------------------------------------------
 
 constexpr int CLUSTER_BW = 8;  // columns a cluster: one 32-byte sector a row
+constexpr int CLUSTER_MAX_L0 = 4;  // Z0 = Z / R <= 16 blocks a cluster
 
 // One block's share: R = Z1 * 64 rows of CLUSTER_BW columns, Z1 * CLUSTER_BW
 // threads (64 values each in at most 128 registers), the slab's padded layout.
@@ -395,8 +329,8 @@ struct ClusterShape {
 };
 
 struct ClusterTwiddles {  // kernel parameter (constant bank)
-  uint32_t w0[1 << (OUTER_MAX_L - 1)];  // leading stages: root^(R e), e < Z0 / 2
-  PassTwiddles pass;                    // the R-point slab's, root^Z0
+  uint32_t w0[1 << (CLUSTER_MAX_L0 - 1)];  // leading stages: root^(R e), e < Z0 / 2
+  PassTwiddles pass;                       // the R-point slab's, root^Z0
 };
 
 // The two halves of a cluster barrier (PTX barrier.cluster).  The relaxed
@@ -761,33 +695,6 @@ extern "C" int ntt_slab_launch(const void* x, void* out, const void* twist,
     case 11: return (int)launch_slab<5, 6>(xi, o, tt, tw, C, batches, inv, st);
     case 12: return (int)launch_slab<6, 6>(xi, o, tt, tw, C, batches, inv, st);
     default: return (int)cudaErrorInvalidValue;
-  }
-}
-
-// out = the first L0 DIF stages with the twist (forward), or the inverse
-// twist and the last L0 inverse stages (inverse), of a (2^L0 * 4096, C)
-// transform along axis 0 on `stream`, 1 <= L0 <= 4 (see ntt_outer above).
-// twist: the (2^L0, 4096) twist table in device memory; tw_host: the 2^L0 / 2
-// twiddles root^(4096 e) in host memory.  x may equal out.  Returns
-// cudaGetLastError() of the launch.
-extern "C" int ntt_outer_launch(const void* x, void* out, const void* twist,
-                                const void* tw_host, int L0, long long C,
-                                int inverse, void* stream) {
-  if (L0 < 1 || L0 > OUTER_MAX_L) return (int)cudaErrorInvalidValue;
-  OuterTwiddles tw = {};
-  const uint32_t* src = (const uint32_t*)tw_host;
-  for (int i = 0; i < (1 << L0) / 2; ++i) tw.w[i] = src[i];
-  if (C <= 0) return (int)cudaGetLastError();
-  const uint32_t* xi = (const uint32_t*)x;
-  uint32_t* o = (uint32_t*)out;
-  const uint32_t* tt = (const uint32_t*)twist;
-  const cudaStream_t st = (cudaStream_t)stream;
-  const bool inv = inverse != 0;
-  switch (L0) {
-    case 1: return (int)launch_outer<1>(xi, o, tt, tw, C, inv, st);
-    case 2: return (int)launch_outer<2>(xi, o, tt, tw, C, inv, st);
-    case 3: return (int)launch_outer<3>(xi, o, tt, tw, C, inv, st);
-    default: return (int)launch_outer<4>(xi, o, tt, tw, C, inv, st);
   }
 }
 

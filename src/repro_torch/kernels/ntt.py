@@ -13,15 +13,11 @@ up to 4096 (`SLAB_MAX_Z`) two register passes meet in one exchange through
 shared memory ("slab"); above it one pass on a thread-block cluster of Z / R
 blocks, each holding R rows (2048, or 4096 at Z = 2^16) of 8 columns in
 shared memory and exchanging the leading stages through the cluster's
-distributed shared memory ("cluster").  A two-pass route above 4096, a
-leading-stages kernel ("outer") and the slab kernel on each block of 4096
-rows, runs only for checks and timing: `ntt(x, _route="two-pass")` forces it
-and `_route="cluster"` the one-pass kernel (neither changes what a CPU
-tensor computes).  A CUDA tensor launches the kernels on the current stream
-(no synchronise) or raises; a CPU tensor runs the plain version
-`ref.ntt_plain`.  `ntt.launches` counts kernel launches, and
-`ntt.launches_by_kernel` splits them into "registers", "slab", "cluster" and
-"outer".
+distributed shared memory ("cluster").  A CUDA tensor launches the kernels
+on the current stream (no synchronise) or raises; a CPU tensor runs the
+plain version `ref.ntt_plain`.  `ntt.launches` counts kernel launches, and
+`ntt.launches_by_kernel` splits them into "registers", "slab" and
+"cluster".
 """
 from __future__ import annotations
 
@@ -39,7 +35,6 @@ from .ref import ntt_plain
 MAX_Z = 1 << 16    # the largest power of two dividing q - 1 = 2^16
 REGS_MAX_Z = 64    # a whole column in one thread's registers
 SLAB_MAX_Z = 4096  # Z1 * Z2 with both register passes <= 64 values
-ROUTES = ("cluster", "two-pass")  # above SLAB_MAX_Z; `ntt(_route=...)`
 # rows a block of the cluster kernel holds (8 columns each), as the kernel's
 # `with_layout` sets them: 2048 (two blocks an SM) up to 2^15; 4096 at 2^16,
 # where 2048 would need 32 blocks a cluster and a cluster holds at most 16
@@ -118,15 +113,6 @@ def slab_tables(Z: int, root: int, scale: int) -> tuple[np.ndarray, np.ndarray]:
 
 
 @functools.lru_cache(maxsize=None)
-def outer_tables(Z: int, root: int, scale: int) -> tuple[np.ndarray, np.ndarray]:
-    """Host tables of the leading-stages launch for Z = Z0 * 4096: the Z0/2
-    twiddles root^(4096 e) and the (Z0, 4096) twist table times `scale`."""
-    z0 = Z // SLAB_MAX_Z
-    tw = _powers(pow(root, SLAB_MAX_Z, FERMAT_Q), z0 // 2)
-    return _frozen(tw), _twist(root, z0, SLAB_MAX_Z, scale)
-
-
-@functools.lru_cache(maxsize=None)
 def cluster_tables(Z: int, root: int, scale: int) -> tuple:
     """Host tables of one cluster launch for Z = Z0 * rows (rows =
     `CLUSTER_ROWS[Z]`): 72 pass twiddles (w0[8] = root^(rows e), e < Z0/2,
@@ -152,7 +138,7 @@ def roots(Z: int, inverse: bool) -> tuple[int, int]:
 
 
 _DEVICE_TWIST: dict[tuple, tuple] = {}
-_TABLES = {"slab": slab_tables, "outer": outer_tables, "cluster": cluster_tables}
+_TABLES = {"slab": slab_tables, "cluster": cluster_tables}
 
 
 def _device_twist(kind: str, Z: int, root: int, scale: int, device) -> tuple:
@@ -179,14 +165,6 @@ def _slab_launcher():
                        [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_longlong,
                                                 ctypes.c_int, ctypes.c_int,
                                                 ctypes.c_void_p])
-
-
-@functools.lru_cache(maxsize=None)
-def _outer_launcher():
-    # ntt_outer_launch(x, out, twist, tw_host, L0, C, inverse, stream)
-    return build.entry("ntt", "ntt_outer_launch",
-                       [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_longlong,
-                                                ctypes.c_int, ctypes.c_void_p])
 
 
 @functools.lru_cache(maxsize=None)
@@ -229,21 +207,12 @@ def _launch(kernel: str, err: int) -> None:
     ntt.launches_by_kernel[kernel] += 1
 
 
-def _slab(x, out, Z: int, root: int, scale: int, batches: int, inverse: bool,
-          stream) -> None:
-    """One slab launch: Z-point transforms of `batches` stacked (Z, C) blocks."""
+def _slab(x, out, Z: int, root: int, scale: int, inverse: bool, stream) -> None:
+    """One slab launch: the Z-point transform of one (Z, C) block."""
     tw, twist = _device_twist("slab", Z, root, scale, x.device)
     _launch("slab", _slab_launcher()(
         x.data_ptr(), out.data_ptr(), twist.data_ptr(), tw.ctypes.data,
-        Z.bit_length() - 1, x.shape[1], batches, int(inverse), stream))
-
-
-def _outer(x, out, Z: int, root: int, scale: int, inverse: bool, stream) -> None:
-    tw, twist = _device_twist("outer", Z, root, scale, x.device)
-    L0 = (Z // SLAB_MAX_Z).bit_length() - 1
-    _launch("outer", _outer_launcher()(
-        x.data_ptr(), out.data_ptr(), twist.data_ptr(), tw.ctypes.data, L0,
-        x.shape[1], int(inverse), stream))
+        Z.bit_length() - 1, x.shape[1], 1, int(inverse), stream))
 
 
 def _cluster(x, out, Z: int, root: int, scale: int, inverse: bool, stream) -> None:
@@ -254,7 +223,7 @@ def _cluster(x, out, Z: int, root: int, scale: int, inverse: bool, stream) -> No
         tw.ctypes.data, Z.bit_length() - 1, x.shape[1], int(inverse), stream))
 
 
-def _run(x, out, inverse: bool, stream, forced: str | None) -> None:
+def _run(x, out, inverse: bool, stream) -> None:
     """Launch the kernels of one (Z, C) transform x -> out on `stream`."""
     Z, C = x.shape
     root, scale = roots(Z, inverse)
@@ -264,33 +233,18 @@ def _run(x, out, inverse: bool, stream, forced: str | None) -> None:
             x.data_ptr(), out.data_ptr(), tw.ctypes.data, Z.bit_length() - 1, C,
             scale, int(inverse), stream))
     elif Z <= SLAB_MAX_Z:
-        _slab(x, out, Z, root, scale, 1, inverse, stream)
-    elif forced != "two-pass":
-        _cluster(x, out, Z, root, scale, inverse, stream)
+        _slab(x, out, Z, root, scale, inverse, stream)
     else:
-        # the 4096-point transforms of the Z0 blocks have root^Z0 (order 4096)
-        z0 = Z // SLAB_MAX_Z
-        sub = pow(root, z0, FERMAT_Q)
-        if inverse:
-            _slab(x, out, SLAB_MAX_Z, sub, 1, z0, True, stream)
-            _outer(out, out, Z, root, scale, True, stream)
-        else:
-            _outer(x, out, Z, root, 1, False, stream)
-            _slab(out, out, SLAB_MAX_Z, sub, 1, z0, False, stream)
+        _cluster(x, out, Z, root, scale, inverse, stream)
 
 
-def ntt(x: torch.Tensor, *, inverse: bool = False,
-        _route: str | None = None) -> torch.Tensor:
+def ntt(x: torch.Tensor, *, inverse: bool = False) -> torch.Tensor:
     """Batched NTT along axis 0: x (Z, C) int32 in [0, q) -> (Z, C) int32,
     Z a power of two dividing q - 1 (Z <= 2^16).
 
     Forward: out[k] = sum_j x[j] * beta^(j * rev(k))   (== x @ D_Z Pi).
     Inverse: exact inverse of forward (includes the 1/Z scaling).
-    `_route` (checks and timing only) names the route above Z = 4096:
-    "cluster" (the main path's, also taken for None) or "two-pass".
     """
-    if _route is not None and _route not in ROUTES:
-        raise ValueError(f"ntt: unknown route {_route!r}, not one of {ROUTES}")
     if x.dim() != 2:
         raise ValueError(f"ntt takes a (Z, C) array, got {tuple(x.shape)}")
     if x.dtype != torch.int32:
@@ -310,9 +264,9 @@ def ntt(x: torch.Tensor, *, inverse: bool = False,
     if x.numel() == 0:
         return out
     with torch.cuda.device(x.device):
-        _run(x, out, inverse, torch.cuda.current_stream().cuda_stream, _route)
+        _run(x, out, inverse, torch.cuda.current_stream().cuda_stream)
     return out
 
 
 ntt.launches = 0
-ntt.launches_by_kernel = {"registers": 0, "slab": 0, "cluster": 0, "outer": 0}
+ntt.launches_by_kernel = {"registers": 0, "slab": 0, "cluster": 0}

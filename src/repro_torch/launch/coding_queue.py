@@ -356,11 +356,10 @@ class CodingQueue:
                 out = out[idx]
             return out
         if req.op == "rebuild":
-            q = req.spec.q
-            healed = (req.payload % q).astype(np.int64)
-            if plan.erased:
-                healed[list(plan.erased)] = out
-            return healed
+            from ..api.backends import host_layout
+
+            return host_layout(req.spec.N, req.spec.q, req.payload, rows=out,
+                               rows_at=plan.erased)
         return out
 
     def _process_group(self, reqs: list[_Request]) -> None:

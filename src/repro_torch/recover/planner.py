@@ -40,7 +40,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from ..api.backends import run_on_device
+from ..api.backends import host_layout, run_on_device
 from ..api.planner import ALPHA_DEFAULT, BETA_BITS_DEFAULT, _digest, _host_tables
 from ..api.registry import PlanStats, get_backend, plan_device
 from ..api.spec import CodeSpec
@@ -283,25 +283,6 @@ class DecodePlan(PlanStats):
 
         return run_simulator(self, v)  # (y, RoundNetwork) pair
 
-    def _stream_device_fn(self):
-        """The per-chunk device function of the pipeline: (K, w) int32 ->
-        (|E|, w) int32 on `plan.device` ((K/G, w), this rank's block, on
-        the mesh)."""
-        from .backends import local_decode_callable, mesh_decode_fn
-
-        if self.backend == "mesh":
-            return mesh_decode_fn(self)
-        return local_decode_callable(self)
-
-    def _stream_rows(self) -> slice | None:
-        """The survivor rows this rank copies to its device (the mesh
-        block), or None for all."""
-        if self.backend != "mesh":
-            return None
-        from .backends import _mesh_callables
-
-        return _mesh_callables(self)[0].mesh.block
-
     def data(self, v, pick=None) -> np.ndarray:
         """Decode the full original data x (K, W) from the survivors (the
         degraded-read path).  Runs the `gf_matmul` kernel with S^-1 on the
@@ -355,10 +336,9 @@ class DecodePlan(PlanStats):
             f"(model C ~ {model_us:.1f} us)",
             f"  schedule: {sched}",
         ]
-        if self.backend == "mesh":
-            from ..api.planner import mesh_note
-
-            lines.append(f"  mesh    : {mesh_note(self)}")
+        line = get_backend(self.backend).describe_line(self)
+        if line is not None:
+            lines.append(line)
         return "\n".join(lines)
 
 
@@ -460,9 +440,7 @@ def repair_with_faults(spec: CodeSpec, cw, erased=(), *,
             # an idle survivor died mid-run without aborting the schedule;
             # its symbol is lost all the same — repair the superset too
             continue
-        healed = (v2 % spec.q).astype(np.int64)
-        if pattern:
-            healed[list(pattern)] = np.asarray(y, np.int64)
+        healed = host_layout(spec.N, spec.q, v2, rows=y, rows_at=pattern)
         return RepairReport(healed[:, 0] if squeeze else healed, plan, net,
                             attempts)
 

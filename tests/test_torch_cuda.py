@@ -112,8 +112,8 @@ def test_cuda_ntt_matches_plain(cuda_device, Z, C):
 @pytest.mark.parametrize("Z", [1 << h for h in range(13)] + [8192, 16384, 65536])
 def test_cuda_ntt_kernels_by_z(cuda_device, Z, inverse):
     """Every kernel and the boundaries between them (registers up to Z = 64,
-    the two-pass slab up to 4096, the cluster kernel above), at a ragged
-    width."""
+    the slab's two register passes up to 4096, the cluster kernel above), at
+    a ragged width."""
     C = 1000 + 3 * Z + 1 if Z <= 4096 else 97
     x = _cuda_rand(cuda_device, Z, C, seed=Z + 7)
     before = dict(ntt.launches_by_kernel)
@@ -127,32 +127,17 @@ def test_cuda_ntt_kernels_by_z(cuda_device, Z, inverse):
 @pytest.mark.parametrize("C", [1, 7, 97, 4099])
 @pytest.mark.parametrize("Z", [1 << 13, 1 << 14, 1 << 15, 1 << 16])
 def test_cuda_ntt_cluster_matches_plain(cuda_device, Z, C):
-    """The one-pass cluster kernel, forced, one launch a transform: ragged
-    widths around its 8-column clusters and an all-65536 input, both
-    directions."""
+    """The one-pass cluster kernel, one launch a transform: ragged widths
+    around its 8-column clusters and an all-65536 input, both directions."""
     x = _cuda_rand(cuda_device, Z, C, seed=Z + C)
     full = torch.full((Z, C), FERMAT_Q - 1, dtype=torch.int32, device=cuda_device)
     for inverse in (False, True):
         for inp in (x, full):
             before = dict(ntt.launches_by_kernel)
-            got = ntt(inp, inverse=inverse, _route="cluster")
+            got = ntt(inp, inverse=inverse)
             torch.cuda.synchronize()
             assert _launched(before) == {"cluster": 1}
             assert torch.equal(got.long(), ntt_plain(inp, inverse=inverse))
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("Z", [1 << 13, 1 << 14, 1 << 15, 1 << 16])
-def test_cuda_ntt_two_pass_route_matches_plain(cuda_device, Z):
-    """The forced two-pass route (leading stages, then the slab on each
-    4096-row block; the other way round for the inverse) still holds."""
-    x = _cuda_rand(cuda_device, Z, 99, seed=Z + 1)
-    for inverse in (False, True):
-        before = dict(ntt.launches_by_kernel)
-        got = ntt(x, inverse=inverse, _route="two-pass")
-        torch.cuda.synchronize()
-        assert _launched(before) == {"outer": 1, "slab": 1}
-        assert torch.equal(got.long(), ntt_plain(x, inverse=inverse))
 
 
 @pytest.mark.cuda
@@ -188,8 +173,6 @@ def test_cuda_ntt_refused_cluster_launch_raises(cuda_device, monkeypatch):
     monkeypatch.setattr(mod, "ntt_plain", no_plain)
     before, n = dict(ntt.launches_by_kernel), ntt.launches
     for inverse in (False, True):
-        with pytest.raises(RuntimeError, match="cluster"):
-            ntt(x, inverse=inverse, _route="cluster")
         with pytest.raises(RuntimeError, match="cluster"):
             ntt(x, inverse=inverse)
     torch.cuda.synchronize()

@@ -5,18 +5,17 @@ the root (`ntt_regs`), and a Z-point DIF transform with Z > 64 as a pure
 Z1-point DIF of each strided sequence x[j + a Z2], a twist by
 root^(j rev(a)), and a pure Z2-point DIF of each contiguous block of Z2 rows
 (`ntt_slab`, Z <= 4096).  Above 4096 the one-pass cluster kernel
-(`ntt_cluster`, the main path) splits Z into Z / rows blocks of
-rows = `CLUSTER_ROWS[Z]` rows (2048 up to 2^15, 4096 at 2^16), each held by
-one block of a cluster in shared memory, and exchanges the leading stages'
-values through the cluster's shared memory; the forced two-pass route
-splits it with Z2 = 4096 and runs the leading-stages kernel (`ntt_outer`),
-then `ntt_slab` on each 4096-row block.  `_split_ntt` (the two-pass route) and `_cluster_ntt` (the cluster
-kernel's data movement, word for word in its padded shared layout) repeat
-those schemes in int64 torch with the wrapper's own host tables
-(`slab_tables`, `outer_tables`, `cluster_tables`, `roots`) and are held
-bitwise (tolerance 0: field arithmetic is exact) against `ntt_plain` and
-the JAX package's `ntt_xla`.  The CUDA kernels themselves are held against
-`ntt_plain` on the card (`test_torch_cuda.py`, `chip_smoke.py`).
+(`ntt_cluster`) splits Z into Z / rows blocks of rows = `CLUSTER_ROWS[Z]`
+rows (2048 up to 2^15, 4096 at 2^16), each held by one block of a cluster
+in shared memory, and exchanges the leading stages' values through the
+cluster's shared memory.  `_split_ntt` (every kernel's scheme, by Z) and
+`_cluster_ntt` (the cluster kernel's data movement, word for word in its
+padded shared layout) repeat those schemes in int64 torch with the
+wrapper's own host tables (`regs_tables`, `slab_tables`, `cluster_tables`,
+`roots`) and are held bitwise (tolerance 0: field arithmetic is exact)
+against `ntt_plain` and the JAX package's `ntt_xla`.  The CUDA kernels
+themselves are held against `ntt_plain` on the card (`test_torch_cuda.py`,
+`chip_smoke.py`).
 """
 import importlib
 
@@ -28,10 +27,10 @@ import torch
 from repro.kernels.ntt import ntt_twiddles as jax_ntt_twiddles
 from repro.kernels.ntt import ntt_xla as jax_ntt_xla
 from repro_torch.core.field import FERMAT, FERMAT_Q, fermat_add, fermat_mul, fermat_sub
-from repro_torch.kernels import ntt, ntt_plain, ntt_twiddles
-from repro_torch.kernels.ntt import (CLUSTER_ROWS, REGS_MAX_Z, ROUTES,
-                                     SLAB_MAX_Z, cluster_tables, outer_tables,
-                                     regs_tables, roots, slab_split, slab_tables)
+from repro_torch.kernels import ntt_plain, ntt_twiddles
+from repro_torch.kernels.ntt import (CLUSTER_ROWS, REGS_MAX_Z, SLAB_MAX_Z,
+                                     cluster_tables, regs_tables, roots,
+                                     slab_split, slab_tables)
 
 torch.set_num_threads(1)
 
@@ -81,20 +80,9 @@ def _slab(x, Z, root, scale, inverse):
     return _twisted_split(x, z1, tw[:z1 // 2], twist, tw[32:32 + z2 // 2], inverse)
 
 
-def _outer_only(x, z0, tw, twist, inverse):
-    """ntt_outer: pure z0-point DIF of each x[j + a 4096], with the twist
-    after it (forward) or before it (inverse, Z^-1 folded into the table)."""
-    Z, C = x.shape
-    v = x.reshape(z0, SLAB_MAX_Z, C)
-    t = torch.as_tensor(twist.astype(np.int64))[:, :, None]
-    if inverse:
-        return _dif(fermat_mul(v, t), tw, True).reshape(Z, C)
-    return fermat_mul(_dif(v, tw, False), t).reshape(Z, C)
-
-
 def _split_ntt(x, inverse):
-    """The kernels' schemes for every Z, with the two-pass route above
-    4096 (the wrapper's `_run` with `_route="two-pass"`)."""
+    """The kernels' schemes for every Z, as the wrapper's `_run` picks
+    them."""
     Z, C = x.shape
     root, scale = roots(Z, inverse)
     if Z <= REGS_MAX_Z:
@@ -102,17 +90,7 @@ def _split_ntt(x, inverse):
         return fermat_mul(y, torch.tensor(scale)) if inverse else y
     if Z <= SLAB_MAX_Z:
         return _slab(x[None], Z, root, scale, inverse)[0]
-    z0 = Z // SLAB_MAX_Z
-    sub = pow(root, z0, FERMAT_Q)
-    tw, twist = outer_tables(Z, root, scale)
-
-    def slabs(v):
-        return _slab(v.reshape(z0, SLAB_MAX_Z, C), SLAB_MAX_Z, sub, 1,
-                     inverse).reshape(Z, C)
-
-    if inverse:  # the 4096-point inverses (scale 1), then the leading stages
-        return _outer_only(slabs(x), z0, tw, twist, True)
-    return slabs(_outer_only(x, z0, tw, twist, False))
+    return _cluster_ntt(x, inverse)
 
 
 BW = 8          # ntt_cluster's columns a cluster (CLUSTER_BW)
@@ -225,64 +203,39 @@ def test_cluster_exchange_fills_every_row_once(Z):
     assert torch.equal(j // share, torch.arange(z0)[:, None, None].expand_as(j))
 
 
-@pytest.mark.parametrize("Z", [64, 4096, 1 << 13, 1 << 16])
-def test_private_route_leaves_cpu_result_unchanged(Z):
-    """`_route` only forces a kernel route on the card; a CPU tensor runs
-    the plain version whichever is named, and an unknown name raises."""
-    x = torch.as_tensor(np.random.default_rng(Z).integers(0, FERMAT_Q, (Z, 3)),
-                        dtype=torch.int32)
-    for inverse in (False, True):
-        want = ntt(x, inverse=inverse)
-        assert torch.equal(want.long(), ntt_plain(x, inverse=inverse))
-        for forced in ROUTES:
-            assert torch.equal(ntt(x, inverse=inverse, _route=forced), want)
-    for bad in ("one-pass", "Cluster", "outer", ""):
-        with pytest.raises(ValueError, match="route"):
-            ntt(x, _route=bad)
-
-
 def test_route_dispatch(monkeypatch):
     """The wrapper's dispatch by Z alone, with the C entries replaced by
     recorders: registers up to 64, the slab up to 4096, above it one cluster
     launch in both directions (given log2 Z, C and the direction: the kernel
-    sets its rows from log2 Z), and the two-pass route (leading stages and
-    the slab over Z / 4096 blocks, the other way round for the inverse) only
-    when `_route` forces it."""
+    sets its rows from log2 Z)."""
     mod = importlib.import_module("repro_torch.kernels.ntt")
     calls = []
 
-    def recorder(kernel, at):  # the C entry's (log2 Z or L0, C, batches?, inverse)
+    def recorder(kernel, at):  # the C entry's (log2 Z, C, batches?, inverse)
         return lambda *args: calls.append((kernel, *args[at:-1])) or 0
 
     monkeypatch.setattr(mod, "_regs_launcher", lambda: recorder("registers", 3))
     monkeypatch.setattr(mod, "_slab_launcher", lambda: recorder("slab", 4))
-    monkeypatch.setattr(mod, "_outer_launcher", lambda: recorder("outer", 4))
     monkeypatch.setattr(mod, "_cluster_launcher", lambda: recorder("cluster", 5))
     monkeypatch.setattr(mod.ntt, "launches", 0)
     monkeypatch.setattr(mod.ntt, "launches_by_kernel", dict.fromkeys(
-        ("registers", "slab", "cluster", "outer"), 0))
+        ("registers", "slab", "cluster"), 0))
     assert set(CLUSTER_ROWS) == {1 << h for h in range(13, 17)}
     for h in range(17):
         Z = 1 << h
         x = torch.zeros((Z, 3), dtype=torch.int32)
         for inverse in (False, True):
-            for forced in (None,) + ROUTES:
-                calls.clear()
-                mod._run(x, torch.empty_like(x), inverse, None, forced)
-                i = int(inverse)
-                if Z <= REGS_MAX_Z:
-                    _, scale = roots(Z, inverse)
-                    want = [("registers", h, 3, scale, i)]
-                elif Z <= SLAB_MAX_Z:
-                    want = [("slab", h, 3, 1, i)]
-                elif forced != "two-pass":
-                    want = [("cluster", h, 3, i)]
-                else:
-                    L0, z0 = h - 12, Z // SLAB_MAX_Z
-                    want = [("outer", L0, 3, i), ("slab", 12, 3, z0, i)]
-                    if inverse:
-                        want.reverse()
-                assert calls == want, (Z, inverse, forced)
+            calls.clear()
+            mod._run(x, torch.empty_like(x), inverse, None)
+            i = int(inverse)
+            if Z <= REGS_MAX_Z:
+                _, scale = roots(Z, inverse)
+                want = [("registers", h, 3, scale, i)]
+            elif Z <= SLAB_MAX_Z:
+                want = [("slab", h, 3, 1, i)]
+            else:
+                want = [("cluster", h, 3, i)]
+            assert calls == want, (Z, inverse)
     assert mod.ntt.launches == sum(mod.ntt.launches_by_kernel.values())
 
 
@@ -340,22 +293,11 @@ def test_tables_fit_32_bit_products(Z):
             tw, twist = slab_tables(Z, root, scale)
             stage = [tw[:z1 // 2], tw[32:32 + z2 // 2]]
         else:
-            z0 = Z // SLAB_MAX_Z
-            tw, twist = outer_tables(Z, root, scale)
-            sub, stwist = slab_tables(SLAB_MAX_Z, pow(root, z0, FERMAT_Q), 1)
-            stage = [tw, sub[:32], sub[32:]]
             rows = CLUSTER_ROWS[Z]
-            ctw, cotwist, cstwist = cluster_tables(Z, root, scale)
-            if rows == SLAB_MAX_Z:
-                # at 4096 rows the two-pass route's twiddles in one
-                # parameter block, the slab's twist table with scale 1
-                assert np.array_equal(ctw[:z0 // 2], tw) and not ctw[z0 // 2:8].any()
-                assert np.array_equal(ctw[8:], sub)
-                assert np.array_equal(cotwist, twist) and np.array_equal(cstwist, stwist)
-            assert not ctw[Z // rows // 2:8].any() and cstwist.shape == (rows // 64, 64)
-            stage += [ctw[:Z // rows // 2], ctw[8:40], ctw[40:], cstwist]
-            assert (cotwist < FERMAT_Q).all()
-            assert inverse or (cotwist < FERMAT_Q - 1).all()
+            z0 = Z // rows
+            tw, twist, stwist = cluster_tables(Z, root, scale)
+            assert not tw[z0 // 2:8].any() and stwist.shape == (rows // 64, 64)
+            stage = [tw[:z0 // 2], tw[8:40], tw[40:], stwist]
         for t in stage:
             assert (t < FERMAT_Q - 1).all()
         assert (twist < FERMAT_Q).all()

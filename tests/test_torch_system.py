@@ -15,6 +15,7 @@ import torch
 from repro.api import CodedSystem as JSystem
 from repro.api import CodeSpec as JSpec
 from repro.recover import UndecodableError as JUndecodable
+from repro_torch.api import Backend, register_backend, unregister_backend
 from repro_torch.api import CodedSystem as TSystem
 from repro_torch.api import CodeSpec as TSpec
 from repro_torch.recover import Decoder, UndecodableError
@@ -451,6 +452,81 @@ def test_port_sources_import_no_jax_or_reference():
     for path in files:
         roots = set(_imported_roots(path))
         assert not roots & {"jax", "jaxlib", "repro"}, (path, roots)
+
+
+NAMED = re.compile(r'backend\s*(==|!=)\s*"(local|mesh|simulator)"')
+
+
+def test_port_sources_never_ask_which_backend_they_run_on():
+    """Only the backends' own modules may name a built-in backend in a
+    comparison: the session, the planners and the queue ask the `Backend`."""
+    owners = {"src/repro_torch/api/backends.py",
+              "src/repro_torch/recover/backends.py"}
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    assert {"src/repro_torch/api/system.py", "src/repro_torch/api/planner.py",
+            "src/repro_torch/recover/planner.py"} <= {
+                p.relative_to(ROOT).as_posix() for p in files}
+    named = [(p.relative_to(ROOT).as_posix(), n) for p in files
+             for n, line in enumerate(p.read_text().splitlines(), 1)
+             if NAMED.search(line)
+             and p.relative_to(ROOT).as_posix() not in owners]
+    assert named == []
+
+
+class _EncodeDecodeOnly(Backend):
+    """A third-party backend with `encode` and `decode` alone (the
+    simulator's executors): the session lays its answers out through
+    `Backend.run_into`'s default and the host's layout."""
+
+    host_only = True
+
+    def encode(self, plan, x):
+        from repro_torch.api.backends import run_simulator
+
+        return run_simulator(plan, x)[0]
+
+    def decode(self, plan, v):
+        from repro_torch.recover.backends import run_simulator
+
+        return run_simulator(plan, v)[0]
+
+
+def _rebuilt(system, op, lost, v):
+    if op == "rebuild_n":
+        return system.rebuild(lost)
+    if op == "rebuild_k":
+        return system.rebuild(v)
+    if op == "rebuild_stream":
+        return np.concatenate(list(system.rebuild_stream(lost, chunk_w=16)),
+                              axis=1)
+    return system.submit("rebuild", lost).result(timeout=120)
+
+
+@pytest.mark.parametrize("op", ["codeword", "rebuild_n", "rebuild_k",
+                                "rebuild_stream", "submit_rebuild"])
+def test_third_party_backend_lays_out_on_the_host(op):
+    register_backend("encode-decode-only", _EncodeDecodeOnly)
+    j = JSystem(JSpec(kind="rs", K=16, R=4), backend="simulator")
+    t = TSystem(TSpec(kind="rs", K=16, R=4), backend="encode-decode-only")
+    try:
+        rng = np.random.default_rng(29)
+        x = payload("negatives", 16, W, seed=29)
+        cw = j.codeword(x)
+        if op == "codeword":
+            got, want = t.codeword(x), cw
+        else:
+            for sys_ in (j, t):
+                sys_.fail(_pattern(16, 4))
+            lost = cw + Q * rng.integers(-3, 4, cw.shape)  # not residues
+            lost[list(t.failed)] = 0
+            v = lost[list(t.kept)]
+            got, want = _rebuilt(t, op, lost, v), _rebuilt(j, op, lost, v)
+            assert np.array_equal(got, cw)
+        assert got.dtype == np.int64 and np.array_equal(got, want)
+    finally:
+        t.close()
+        j.close()
+        unregister_backend("encode-decode-only")
 
 
 def test_trace_splits_each_op_into_host_copy_and_kernel_spans():
